@@ -1,0 +1,376 @@
+"""End-to-end inference: waveform → windows → log-mel + ensemble → verdicts
+→ JSON (the reference package's ``infer/pipeline.py``).
+
+Host side (numpy): decode, mono mean, resample to 32 kHz, pad to one
+window, 4-s windows with the silence gate, and after the device pass the
+float32 sigmoid, decision rule, optional smoothing and the reference JSON.
+Device side (one call per bucket): int16 dequantisation, the log-mel front
+end, the resize or native pad, channel replication or the mono stem, and
+the ensemble. Windows go through two static bucket sizes (8, and the batch
+size), as in the reference package.
+
+Front-end gate, as the reference package sets it: on CUDA with a reduced
+compute dtype the front end is the factored log-mel kernel
+(ops/cuda_melspec.py, bf16 DFT); otherwise the float32 GEMM front end. The
+gate reads the device and dtype only. On CUDA a float32 pipeline turns TF32
+off for convolutions and matmuls, so float32 is float32.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from synthetic_audio_detection_tpu.audio import wavio
+from synthetic_audio_detection_tpu.utils.config import (
+    AudioConfig,
+    InferenceConfig,
+    SpectrogramConfig,
+)
+from synthetic_audio_detection_tpu_torch.ensemble.multihead import (
+    MultiHeadEnsemble,
+    _aggregate,
+    ensemble_per_head_logits,
+    fold_to_mono,
+    labels_from_indices,
+    with_dtype,
+)
+from synthetic_audio_detection_tpu_torch.ops import melspec
+from synthetic_audio_detection_tpu_torch.ops.cuda_melspec import dequantize, serving_log_mel
+from synthetic_audio_detection_tpu_torch.ops.filters import gaussian_filter1d
+
+
+# ---------------------------------------------------------------------------
+# Host side
+# ---------------------------------------------------------------------------
+
+def preprocess_waveform(path: str, audio: AudioConfig) -> np.ndarray:
+    """Load → mono mean → resample to the target rate → pad to ≥ 1 window.
+    Returns float32 [T]."""
+    from synthetic_audio_detection_tpu.audio.decode import load_audio
+    from synthetic_audio_detection_tpu_torch.audio.resample import resample_poly_np
+
+    wf, sr = load_audio(path)
+    mono = wf.mean(axis=0)
+    if sr != audio.sample_rate:
+        mono = resample_poly_np(mono, sr, audio.sample_rate)
+    if mono.shape[0] < audio.window_samples:
+        mono = np.pad(mono, (0, audio.window_samples - mono.shape[0]))
+    return mono.astype(np.float32)
+
+
+def slice_waveform(waveform: np.ndarray, audio: AudioConfig
+                   ) -> Tuple[np.ndarray, List[Tuple[float, float]]]:
+    """[T] → (windows [num, window_samples], [(start_sec, end_sec), ...]),
+    skipping windows with max|x| below the silence threshold."""
+    win, hop = audio.window_samples, audio.hop_samples
+    T = waveform.shape[0]
+    n = max(1, 1 + (T - win) // hop) if T >= win else 0
+    chunks, stamps = [], []
+    for i in range(n):
+        s = i * hop
+        seg = waveform[s : s + win]
+        if seg.shape[0] < win:
+            break
+        if np.abs(seg).max() < audio.silence_threshold:
+            continue
+        chunks.append(seg)
+        # the reference's arithmetic: end = start + window_seconds, not
+        # (s + win) / sr, whose last ulp can differ and change the JSON text
+        start = s / audio.sample_rate
+        stamps.append((start, start + audio.window_seconds))
+    if not chunks:
+        return np.zeros((0, win), np.float32), []
+    return np.stack(chunks).astype(np.float32), stamps
+
+
+# ---------------------------------------------------------------------------
+# Device side
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward_windows(
+    ensemble: MultiHeadEnsemble,
+    windows: torch.Tensor,
+    spec_cfg: SpectrogramConfig,
+    sample_rate: int,
+    use_kernel: bool = False,
+    use_fast_backbone: bool = False,
+    return_per_head: bool = False,
+):
+    """[B, T] windows (float32, or int16 PCM) → [B, N+1] logits, and with
+    ``return_per_head`` also the per-head logits [N, B, 2] of the same
+    pass."""
+    windows = dequantize(windows)
+    dtype = ensemble.dtype
+    if use_kernel:
+        z = serving_log_mel(windows, spec_cfg, sample_rate)  # [B, mels, frames]
+        feats = melspec.finalize_features(z, spec_cfg).to(dtype)
+    else:
+        feats = melspec.log_mel_features(windows, spec_cfg, sample_rate,
+                                         use_gemm_dft=True, out_dtype=dtype)
+    if ensemble.in_channels == 1:
+        x = feats[:, None]
+    else:
+        x = melspec.replicate_channels(feats, spec_cfg.out_channels)
+    logits_nh = ensemble_per_head_logits(ensemble, x, fast_backbone=use_fast_backbone)
+    agg = _aggregate(logits_nh)
+    return (agg, logits_nh) if return_per_head else agg
+
+
+class InferencePipeline:
+    """Windows → logits on one device, in two bucket sizes."""
+
+    def __init__(
+        self,
+        ensemble: MultiHeadEnsemble,
+        audio: Optional[AudioConfig] = None,
+        spec: Optional[SpectrogramConfig] = None,
+        infer: Optional[InferenceConfig] = None,
+        compute_dtype: torch.dtype = torch.float32,
+        device: Any = "cpu",
+        transport_dtype: str = "float32",
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("device cuda requested but CUDA is not available")
+            if compute_dtype == torch.float32:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+        reduced = compute_dtype != torch.float32
+        on_gpu = self.device.type == "cuda"
+        self.spec = spec or SpectrogramConfig.inference()
+        # the reference package's mono-stem gate: native resolution,
+        # accelerator, reduced dtype (an exact transform either way)
+        if self.spec.is_native and on_gpu and reduced and ensemble.in_channels == 3:
+            ensemble = fold_to_mono(ensemble)
+        if ensemble.dtype != compute_dtype:
+            ensemble = with_dtype(ensemble, compute_dtype)
+        self.ensemble = ensemble.to(self.device)
+        self.audio = audio or AudioConfig()
+        self.infer = infer or InferenceConfig()
+        self._resolve_calibration()
+        self.compute_dtype = compute_dtype
+        # the bf16-DFT kernel serves only reduced-precision pipelines: a
+        # float32 pipeline stays on the float32 front end end to end
+        self.use_kernel = on_gpu and reduced
+        if transport_dtype not in ("float32", "int16"):
+            raise ValueError(f"unsupported transport_dtype {transport_dtype!r}")
+        self.transport_dtype = transport_dtype
+        self.use_fast_backbone = on_gpu and reduced and self.ensemble.shared_backbone
+
+    def _forward(self, batch: torch.Tensor, return_per_head: bool = False):
+        return forward_windows(
+            self.ensemble, batch, self.spec, self.audio.sample_rate,
+            use_kernel=self.use_kernel,
+            use_fast_backbone=self.use_fast_backbone, return_per_head=return_per_head)
+
+    # -- calibration --------------------------------------------------------
+
+    def _resolve_calibration(self) -> None:
+        """Engage the checkpoint's temperature calibration, its stored
+        threshold (only while ``infer.threshold`` is the 0.5 default) and
+        the per-column operating points, as the reference package does."""
+        cal = self.ensemble.calibration
+        self._cal = cal if (cal and self.infer.apply_calibration) else None
+        self._threshold = self.infer.threshold
+        if self._cal and "threshold" in self._cal and self.infer.threshold == 0.5:
+            self._threshold = float(self._cal["threshold"])
+        n_cols = self.ensemble.num_heads + 1
+        self._col_thr = np.full(n_cols, self._threshold, np.float32)
+        if self.infer.per_column_thresholds:
+            if not (self._cal and "column_thresholds" in self._cal):
+                raise ValueError(
+                    "per_column_thresholds requires a checkpoint calibrated "
+                    "with column thresholds (tools/calibrate_ensemble.py "
+                    "--store-column-thresholds)")
+            ct = np.asarray(self._cal["column_thresholds"], np.float32)
+            if ct.shape != (n_cols,):
+                raise ValueError(f"column_thresholds {ct.shape} vs {n_cols} columns")
+            self._col_thr = ct
+        if self.ensemble.generic_head:
+            n_spec = len(self.ensemble.synthetic_names)
+            self._col_thr_vis = np.delete(self._col_thr, n_spec)
+            self._thr_generic = float(self._col_thr[n_spec])
+        else:
+            self._col_thr_vis = self._col_thr
+            self._thr_generic = float(self._col_thr[-1])
+        if self.infer.generic_verdict and not self.ensemble.generic_head:
+            raise ValueError(
+                "generic_verdict requires a checkpoint trained with a "
+                "generic head (ensemble_trainer --generic-head)")
+
+    # -- bucketing ----------------------------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        # two levels: 8 for short clips, the batch size otherwise; chosen
+        # once per call, so a long recording's tail pads into the same bucket
+        return 8 if n <= 8 else self.infer.batch_size
+
+    def _bucketed_batches(self, windows: np.ndarray, quantize: bool = True):
+        """Yield (device batch padded to the bucket, rows to keep), with the
+        int16 transport applied unless ``quantize`` is False."""
+        num = windows.shape[0]
+        bucket = self._bucket(num)
+        if quantize and self.transport_dtype == "int16" and windows.dtype != np.int16:
+            windows = wavio.pcm16_quantize(windows)
+        i = 0
+        while i < num:
+            take = min(bucket, num - i)
+            batch = windows[i : i + take]
+            if take < bucket:
+                batch = np.concatenate(
+                    [batch, np.zeros((bucket - take, windows.shape[1]), windows.dtype)])
+            yield torch.from_numpy(np.ascontiguousarray(batch)).to(self.device), take
+            i += take
+
+    def logits_for_windows(self, windows: np.ndarray) -> np.ndarray:
+        """[num, T] → [num, N+1] float32 logits."""
+        if windows.shape[0] == 0:
+            return np.zeros((0, self.ensemble.num_heads + 1), np.float32)
+        out = []
+        for batch, take in self._bucketed_batches(windows):
+            out.append(self._forward(batch)[:take].float().cpu().numpy())
+        return np.concatenate(out, axis=0)
+
+    # -- diagnostics --------------------------------------------------------
+
+    def logits_and_per_head(self, windows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """[num, T] → (serving logits [num, N+1], per-head logits
+        [num, N, 2]) from the same pass, so the two never disagree."""
+        n = self.ensemble.num_heads
+        if windows.shape[0] == 0:
+            return np.zeros((0, n + 1), np.float32), np.zeros((0, n, 2), np.float32)
+        agg_out, nh_out = [], []
+        for batch, take in self._bucketed_batches(windows):
+            agg, nh = self._forward(batch, return_per_head=True)
+            agg_out.append(agg[:take].float().cpu().numpy())
+            nh_out.append(nh.float().cpu().numpy().transpose(1, 0, 2)[:take])
+        return np.concatenate(agg_out, axis=0), np.concatenate(nh_out, axis=0)
+
+    def per_head_sigmoids(self, windows: np.ndarray,
+                          serving_numerics: bool = True) -> np.ndarray:
+        """[num, T] → [num, N, 2] per-head sigmoids. ``serving_numerics``
+        False uses the float32 front end and float32 ensemble whatever the
+        pipeline's configuration."""
+        if windows.shape[0] == 0:
+            return np.zeros((0, self.ensemble.num_heads, 2), np.float32)
+        if serving_numerics:
+            _, logits_bn2 = self.logits_and_per_head(windows)
+            return (1.0 / (1.0 + np.exp(-logits_bn2))).astype(np.float32)
+        ens32 = with_dtype(self.ensemble, torch.float32)
+        out = []
+        for batch, take in self._bucketed_batches(windows, quantize=False):
+            _, nh = forward_windows(ens32, batch, self.spec, self.audio.sample_rate,
+                                    return_per_head=True)
+            out.append(nh.cpu().numpy().transpose(1, 0, 2)[:take])
+        probs = 1.0 / (1.0 + np.exp(-np.concatenate(out, axis=0)))
+        return probs.astype(np.float32)
+
+    # -- full clip ----------------------------------------------------------
+
+    def analyze_file(self, path: str, smooth: Optional[bool] = None) -> Dict[str, Any]:
+        windows, stamps = slice_waveform(preprocess_waveform(path, self.audio), self.audio)
+        return self.analyze_windows(windows, stamps, smooth=smooth)
+
+    def analyze_windows(self, windows: np.ndarray, stamps: Sequence[Tuple[float, float]],
+                        smooth: Optional[bool] = None,
+                        logits: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        """Windows → the reference result dict {segments, percentages}.
+        ``logits`` skips the device pass with precomputed serving logits."""
+        smooth = self.infer.smooth if smooth is None else smooth
+        class_names = self.ensemble.class_names
+        if windows.shape[0] == 0:
+            return {"segments": [], "percentages": {}}
+        if logits is None:
+            logits = self.logits_for_windows(windows)
+        if self._cal is not None:
+            from synthetic_audio_detection_tpu.utils.calibration import apply_calibration
+
+            logits = apply_calibration(logits, self._cal)
+        # float32 numpy sigmoid on the host: the reference's text, byte for byte
+        probs = (1.0 / (1.0 + np.exp(-np.asarray(logits, np.float32)))).astype(np.float32)
+        probs, generic = self._split_generic(probs)
+        syn, real = probs[:, :-1], probs[:, -1]
+        is_real = self._decide_rows(syn, real, generic)
+        label_idx = np.where(is_real, probs.shape[1] - 1, syn.argmax(axis=1))
+        if smooth:
+            probs, label_idx = self.smooth_probs(probs, generic)
+        labels = labels_from_indices(label_idx, self.ensemble.synthetic_names,
+                                     self.ensemble.real_name)
+        round_floats = self.infer.round_floats
+        segments = [
+            {"start_sec": round(float(s), 3) if round_floats else float(s),
+             "end_sec": round(float(e), 3) if round_floats else float(e),
+             "label": lab}
+            for (s, e), lab in zip(stamps, labels)
+        ]
+        final = np.mean(probs, axis=0)
+        percentages = {
+            c: (round(float(final[j]) * 100.0, 2) if round_floats else float(final[j] * 100))
+            for j, c in enumerate(class_names)
+        }
+        return {"segments": segments, "percentages": percentages}
+
+    def _split_generic(self, probs: np.ndarray) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """[B, C] → (visible [B, N+1], generic [B] or None); the generic
+        column sits at index N_spec."""
+        if not self.ensemble.generic_head:
+            return probs, None
+        n_spec = len(self.ensemble.synthetic_names)
+        return np.delete(probs, n_spec, axis=1), probs[:, n_spec]
+
+    def smooth_probs(self, probs: np.ndarray, generic: Optional[np.ndarray] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Gaussian-smooth each column over the windows, renormalize rows,
+        re-decide. At the defaults the re-decision reads the renormalized
+        rows (the reference's quirk); with per-column thresholds, K != 1 or
+        the generic verdict it reads the smoothed sigmoids."""
+        sigma = self.infer.smooth_sigma
+        sm_raw = gaussian_filter1d(torch.from_numpy(probs), sigma, axis=0).numpy()
+        sm = sm_raw / np.maximum(sm_raw.sum(axis=1, keepdims=True), 1e-8)
+        n = probs.shape[1] - 1
+        custom_points = (self.infer.per_column_thresholds
+                         or int(self.infer.syn_override_k) != 1
+                         or self.infer.generic_verdict)
+        decide_on = sm_raw if custom_points else sm
+        if generic is not None:
+            generic = gaussian_filter1d(torch.from_numpy(generic[:, None]), sigma,
+                                        axis=0).numpy()[:, 0]
+        is_real = self._decide_rows(decide_on[:, :n], decide_on[:, n], generic)
+        label_idx = np.where(is_real, n, decide_on[:, :n].argmax(axis=1))
+        return sm, label_idx
+
+    def _decide_rows(self, syn: np.ndarray, real: np.ndarray,
+                     generic: Optional[np.ndarray] = None) -> np.ndarray:
+        if self.infer.generic_verdict:
+            if generic is None:
+                raise ValueError(
+                    "generic_verdict requires an ensemble trained with a "
+                    "generic head (train/joint.py --generic-head)")
+            return generic < self._thr_generic
+        return decide_rows(syn, real, self._col_thr_vis, int(self.infer.syn_override_k))
+
+
+def decide_rows(syn: np.ndarray, real: np.ndarray, col_thr: np.ndarray,
+                syn_override_k: int = 1) -> np.ndarray:
+    """Real iff the real column clears its threshold and fewer than
+    ``syn_override_k`` synthetic columns clear theirs (K = 1: the
+    reference's unanimity rule)."""
+    strong = syn >= col_thr[:-1]
+    k = max(int(syn_override_k), 1)
+    return (real >= col_thr[-1]) & (strong.sum(axis=1) < k)
+
+
+def result_json(filename: str, result: Dict[str, Any], indent: int = 4) -> str:
+    """The reference output text: {filename, segments, percentages},
+    ``json.dumps(..., indent=4)``."""
+    return json.dumps(
+        {"filename": filename, "segments": result["segments"],
+         "percentages": result["percentages"]},
+        indent=indent,
+    )

@@ -1,0 +1,116 @@
+"""The PyTorch port runs without JAX: the machine that serves it on a GPU has
+none. Each check runs in a fresh interpreter whose path holds only the
+repository, so nothing imported by the test process leaks in."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "synthetic_audio_detection_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax")
+
+
+def _run(code, cwd, timeout=120):
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "PYTHONSTARTUP")}
+    env["PYTHONPATH"] = REPO
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_cli_runs_without_importing_jax(tmp_path):
+    from synthetic_audio_detection_tpu.audio import wavio
+
+    wav = str(tmp_path / "tiny.wav")
+    wavio.write_wav(wav, (np.random.default_rng(0).standard_normal(32_000 * 5) * 0.2)
+                    .astype(np.float32), 32_000)
+    code = f"""
+        import sys, torch
+        from synthetic_audio_detection_tpu_torch.checkpoints.serialization import save_merged_torch
+        from synthetic_audio_detection_tpu_torch.ensemble.multihead import build_ensemble
+        from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+        from synthetic_audio_detection_tpu_torch.cli import inference_runner
+        torch.manual_seed(0)
+        sds = [BinaryClassifier().state_dict() for _ in range(2)]
+        save_merged_torch("merged.pth", build_ensemble(sds, ["SynA", "SynB", "Real"]))
+        rc = inference_runner.main(["--merged-model", "merged.pth", "--audio", {wav!r},
+                                    "--input-size", "64", "--device", "cpu",
+                                    "--output-json", "out.json"])
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        print("RC", rc, "LOADED", loaded)
+    """
+    res = _run(code, tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "RC 0 LOADED []" in res.stdout, res.stdout + res.stderr
+    assert (tmp_path / "out.json").exists()
+
+
+def test_every_port_module_imports_without_jax(tmp_path):
+    code = f"""
+        import pkgutil, importlib, sys
+        import synthetic_audio_detection_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r})
+        print("MODULES", len(names), "LOADED", loaded)
+    """
+    res = _run(code, tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "LOADED []" in res.stdout, res.stdout
+    assert int(res.stdout.split()[1]) >= 15
+
+
+def _imports(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def test_no_source_imports_jax_or_jax_package_modules():
+    """Static check of every port source and chip_smoke.py: no JAX, and
+    from the JAX package only its jax-free host modules."""
+    allowed = {
+        "synthetic_audio_detection_tpu.audio.decode",
+        "synthetic_audio_detection_tpu.audio.wavio",
+        "synthetic_audio_detection_tpu.utils.config",
+        "synthetic_audio_detection_tpu.utils.calibration",
+        "synthetic_audio_detection_tpu.checkpoints.torch_compat",
+    }
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        for mod in _imports(path):
+            assert mod.split(".")[0] not in FORBIDDEN, (path, mod)
+            if mod.split(".")[0] == "synthetic_audio_detection_tpu":
+                assert any(mod == a or mod.startswith(a + ".") for a in allowed), (path, mod)
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    """No result line and a non-zero exit where CUDA is missing, and when
+    the script stands alone outside the repository."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = _run(f"import runpy; runpy.run_path({os.path.join(REPO, 'chip_smoke.py')!r}, "
+               "run_name='__main__')", tmp_path)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=alone, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
