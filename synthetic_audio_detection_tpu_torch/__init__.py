@@ -8,13 +8,14 @@ NVIDIA GPU:
       → ops/cuda_melspec.py (the factored log-mel kernel, csrc/) or the
         plain PyTorch front end in ops/melspec.py
       → ensemble/multihead.py (shared or dense ResNet backbones, batched
-        MLP heads) → decision rule → reference JSON
+        MLP heads; the shared backbone's 3x3 convs optionally through
+        ops/cuda_conv.py, the conv + BN + ReLU kernel in csrc/)
+      → decision rule → reference JSON
 
-The port imports ``torch``, ``numpy`` and ``scipy`` and never ``jax``. It
-reuses the reference package's jax-free host modules (``audio/decode``,
-``audio/wavio``, ``utils/config``, ``utils/calibration``,
-``checkpoints/torch_compat``), which ``synthetic_audio_detection_tpu``'s lazy
-``__init__`` lets it import without pulling in JAX.
+The port imports ``torch``, ``numpy`` and ``scipy``, never ``jax`` and
+nothing of the reference package: it keeps its own copies of the host
+modules it needs (``audio/decode``, ``audio/wavio``, ``utils/config``,
+``utils/calibration``, ``checkpoints/torch_compat``).
 """
 
 from __future__ import annotations

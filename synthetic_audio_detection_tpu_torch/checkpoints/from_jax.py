@@ -4,7 +4,7 @@ Input is the JAX package's variable tree as numpy (``{'params', 'batch_stats'}``
 as ``jax.tree_util.tree_map(np.asarray, variables)`` gives it); output is the
 port's state dict in the reference key space (``base.*``,
 ``head.<index>.*``) or a whole ensemble. The layout transposes are the
-reference package's own (jax-free) ``torch_compat`` map.
+reference package's ``torch_compat`` map, copied into this package.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from synthetic_audio_detection_tpu.checkpoints.torch_compat import (
+from synthetic_audio_detection_tpu_torch.checkpoints.torch_compat import (
     torch_state_dict_from_variables,
 )
 from synthetic_audio_detection_tpu_torch.ensemble.multihead import (

@@ -16,7 +16,7 @@ from typing import Any, Dict
 
 import torch
 
-from synthetic_audio_detection_tpu.checkpoints.torch_compat import split_merged_state_dict
+from synthetic_audio_detection_tpu_torch.checkpoints.torch_compat import split_merged_state_dict
 from synthetic_audio_detection_tpu_torch.ensemble.multihead import (
     MultiHeadEnsemble,
     build_ensemble,

@@ -17,7 +17,7 @@ import logging
 import os
 import sys
 
-from synthetic_audio_detection_tpu.utils.config import parse_input_size
+from synthetic_audio_detection_tpu_torch.utils.config import parse_input_size
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,7 +78,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from synthetic_audio_detection_tpu.utils.config import (
+    from synthetic_audio_detection_tpu_torch.utils.config import (
         AudioConfig,
         InferenceConfig,
         SpectrogramConfig,

@@ -99,11 +99,14 @@ class MultiHeadEnsemble(nn.Module):
             self._compiled[key] = make()
         return self._compiled[key]
 
-    def compute_backbone(self, i: int, fast: bool = False):
+    def compute_backbone(self, i: int, fast: bool = False, conv3x3_max_channels: int = 0):
         """Backbone i in the compute dtype: the module itself in float32, a
-        dtype copy otherwise, or the BN-folded FastResNet."""
+        dtype copy otherwise, or the BN-folded FastResNet (whose 3x3 convs
+        with at most ``conv3x3_max_channels`` input channels run through the
+        hand-written conv kernel)."""
         if fast:
-            return self._cached(("fast", i), lambda: FastResNet(self.backbones[i], self.dtype))
+            return self._cached(("fast", i, conv3x3_max_channels), lambda: FastResNet(
+                self.backbones[i], self.dtype, conv3x3_max_channels))
         if self.dtype == torch.float32:
             return self.backbones[i]
         return self._cached(("copy", i), lambda: copy.deepcopy(self.backbones[i]).to(
@@ -151,16 +154,19 @@ def heads_forward(layers: List[tuple], pooled: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def ensemble_per_head_logits(ens: MultiHeadEnsemble, x: torch.Tensor,
-                             fast_backbone: bool = False) -> torch.Tensor:
+                             fast_backbone: bool = False,
+                             conv3x3_max_channels: int = 0) -> torch.Tensor:
     """x [B, C, H, W] → per-head logits [N, B, 2] (before aggregation).
     ``fast_backbone`` runs a shared backbone through the BN-folded
-    FastResNet."""
+    FastResNet, with ``conv3x3_max_channels`` as its kernel knob (no effect
+    without ``fast_backbone`` or on a dense layout)."""
     x = x.to(ens.dtype)
     if ens.dtype != torch.float32:
         x = x.contiguous(memory_format=torch.channels_last)
     n = ens.num_heads
     if ens.shared_backbone:
-        feats = ens.compute_backbone(0, fast=fast_backbone)(x)
+        feats = ens.compute_backbone(0, fast=fast_backbone,
+                                     conv3x3_max_channels=conv3x3_max_channels)(x)
         pooled = feats.mean(dim=(2, 3)).expand(n, -1, -1)
     else:
         pooled = torch.stack([ens.compute_backbone(i)(x).mean(dim=(2, 3)) for i in range(n)])

@@ -14,6 +14,13 @@ compute dtype the front end is the factored log-mel kernel
 (ops/cuda_melspec.py, bf16 DFT); otherwise the float32 GEMM front end. The
 gate reads the device and dtype only. On CUDA a float32 pipeline turns TF32
 off for convolutions and matmuls, so float32 is float32.
+
+The same gate, with a shared backbone, engages the BN-folded fast backbone;
+``conv3x3_max_channels`` (default 0, off) then routes its 3x3 convs with at
+most that many input channels through the hand-written conv kernel
+(ops/cuda_conv.py). Elsewhere the knob has no effect.
+
+The pipeline runs on the GPU unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -24,8 +31,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from synthetic_audio_detection_tpu.audio import wavio
-from synthetic_audio_detection_tpu.utils.config import (
+from synthetic_audio_detection_tpu_torch.audio import wavio
+from synthetic_audio_detection_tpu_torch.utils.config import (
     AudioConfig,
     InferenceConfig,
     SpectrogramConfig,
@@ -50,7 +57,7 @@ from synthetic_audio_detection_tpu_torch.ops.filters import gaussian_filter1d
 def preprocess_waveform(path: str, audio: AudioConfig) -> np.ndarray:
     """Load → mono mean → resample to the target rate → pad to ≥ 1 window.
     Returns float32 [T]."""
-    from synthetic_audio_detection_tpu.audio.decode import load_audio
+    from synthetic_audio_detection_tpu_torch.audio.decode import load_audio
     from synthetic_audio_detection_tpu_torch.audio.resample import resample_poly_np
 
     wf, sr = load_audio(path)
@@ -100,6 +107,7 @@ def forward_windows(
     use_kernel: bool = False,
     use_fast_backbone: bool = False,
     return_per_head: bool = False,
+    conv3x3_max_channels: int = 0,
 ):
     """[B, T] windows (float32, or int16 PCM) → [B, N+1] logits, and with
     ``return_per_head`` also the per-head logits [N, B, 2] of the same
@@ -116,7 +124,8 @@ def forward_windows(
         x = feats[:, None]
     else:
         x = melspec.replicate_channels(feats, spec_cfg.out_channels)
-    logits_nh = ensemble_per_head_logits(ensemble, x, fast_backbone=use_fast_backbone)
+    logits_nh = ensemble_per_head_logits(ensemble, x, fast_backbone=use_fast_backbone,
+                                         conv3x3_max_channels=conv3x3_max_channels)
     agg = _aggregate(logits_nh)
     return (agg, logits_nh) if return_per_head else agg
 
@@ -131,8 +140,9 @@ class InferencePipeline:
         spec: Optional[SpectrogramConfig] = None,
         infer: Optional[InferenceConfig] = None,
         compute_dtype: torch.dtype = torch.float32,
-        device: Any = "cpu",
+        device: Any = "cuda",
         transport_dtype: str = "float32",
+        conv3x3_max_channels: int = 0,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -162,12 +172,14 @@ class InferencePipeline:
             raise ValueError(f"unsupported transport_dtype {transport_dtype!r}")
         self.transport_dtype = transport_dtype
         self.use_fast_backbone = on_gpu and reduced and self.ensemble.shared_backbone
+        self.conv3x3_max_channels = conv3x3_max_channels if self.use_fast_backbone else 0
 
     def _forward(self, batch: torch.Tensor, return_per_head: bool = False):
         return forward_windows(
             self.ensemble, batch, self.spec, self.audio.sample_rate,
             use_kernel=self.use_kernel,
-            use_fast_backbone=self.use_fast_backbone, return_per_head=return_per_head)
+            use_fast_backbone=self.use_fast_backbone, return_per_head=return_per_head,
+            conv3x3_max_channels=self.conv3x3_max_channels)
 
     # -- calibration --------------------------------------------------------
 
@@ -289,7 +301,7 @@ class InferencePipeline:
         if logits is None:
             logits = self.logits_for_windows(windows)
         if self._cal is not None:
-            from synthetic_audio_detection_tpu.utils.calibration import apply_calibration
+            from synthetic_audio_detection_tpu_torch.utils.calibration import apply_calibration
 
             logits = apply_calibration(logits, self._cal)
         # float32 numpy sigmoid on the host: the reference's text, byte for byte

@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from synthetic_audio_detection_tpu.utils.config import SpectrogramConfig
+from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
 from synthetic_audio_detection_tpu_torch.ops import build, melspec
 
 SOURCE = "synthetic_audio_detection_tpu_torch/csrc/melspec_factored.cu"
@@ -69,8 +69,12 @@ class FactoredMelKernel:
 
     def _constants(self, cfg: SpectrogramConfig, sample_rate: int, device: torch.device):
         """(cos|sin transposed [2·ncp, hop] bf16, filterbank [n_sig, n_mels]
-        f32, ncp, n_sig) on ``device``, built once per configuration."""
-        key = (cfg, sample_rate, str(device))
+        f32, ncp, n_sig) on ``device``, built once per configuration. Keyed
+        on the fields they depend on, so any object with a
+        SpectrogramConfig's attributes shares one entry with an equal
+        config."""
+        key = (cfg.n_fft, cfg.hop_length, cfg.n_mels, cfg.f_min, cfg.f_max, cfg.mel_norm,
+               cfg.mel_scale, sample_rate, str(device))
         if key not in self._consts:
             fb = melspec.config_filterbank(cfg, sample_rate)
             n_sig = melspec.significant_bins(fb)

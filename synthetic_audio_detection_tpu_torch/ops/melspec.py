@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from synthetic_audio_detection_tpu.utils.config import SpectrogramConfig
+from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
 
 _AMIN = 1e-10
 

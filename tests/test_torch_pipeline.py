@@ -70,7 +70,7 @@ def _ensembles(jax_vars, generic=False, calibration=None):
 def _pipelines(je, te, infer=None, **kw):
     infer = infer or InferenceConfig(batch_size=8)
     return (JP.InferencePipeline(je, audio=AUDIO, spec=SPEC, infer=infer, use_pallas=False, **kw),
-            TP.InferencePipeline(te, audio=AUDIO, spec=SPEC, infer=infer, **kw))
+            TP.InferencePipeline(te, audio=AUDIO, spec=SPEC, infer=infer, device="cpu", **kw))
 
 
 @pytest.fixture(scope="module")
@@ -206,8 +206,10 @@ def test_decide_rows_matches_jax():
 
 def test_front_end_gate_follows_device_and_dtype(jax_vars):
     _, te = _ensembles(jax_vars)
-    cpu_bf16 = TP.InferencePipeline(te, spec=SPEC, compute_dtype=torch.bfloat16)
+    cpu_bf16 = TP.InferencePipeline(te, spec=SPEC, compute_dtype=torch.bfloat16, device="cpu",
+                                    conv3x3_max_channels=512)
     assert not cpu_bf16.use_kernel and not cpu_bf16.use_fast_backbone
+    assert cpu_bf16.conv3x3_max_channels == 0  # the conv kernel rides on the fast backbone
     assert cpu_bf16.ensemble.dtype == torch.bfloat16
 
 
@@ -279,5 +281,11 @@ def test_cli_generic_verdict_requires_generic_head(merged_pth, clip, tmp_path):
 
 
 def test_pipeline_dataclass_configs_are_shared():
-    """Both packages read one AudioConfig/SpectrogramConfig/InferenceConfig."""
-    assert dataclasses.is_dataclass(SPEC) and TP.SpectrogramConfig is JP.SpectrogramConfig
+    """The port keeps its own AudioConfig/SpectrogramConfig/InferenceConfig
+    (it imports nothing of the JAX package), with the reference's fields and
+    defaults, and its pipeline takes either package's config objects."""
+    for name in ("AudioConfig", "SpectrogramConfig", "InferenceConfig"):
+        port, ref = getattr(TP, name), getattr(JP, name)
+        assert port is not ref and port.__module__.startswith("synthetic_audio_detection_tpu_torch")
+        assert dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    assert dataclasses.is_dataclass(SPEC) and isinstance(SPEC, JP.SpectrogramConfig)
