@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -9,16 +9,28 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
 2. build   compiles every CUDA source of the paths (one nvcc per source, all
            started together) into synthetic_audio_detection_tpu_torch/build/.
 3. kernels each kernel against its plain PyTorch version on the same
-           inputs at the shapes the serving path gives it, with the stated
+           inputs at the shapes its path gives it, with the stated
            tolerance, timed with CUDA events (median of 20 back-to-back
            launches after warm-up) beside its bound and, where one PyTorch
            call computes the same function, that call:
-           - K1, the log-mel kernel, at [128, 128000] waveforms (numpy seed);
+           - K1, the factored log-mel kernel, at [128, 128000] waveforms
+             (numpy seed), with the float32 tail and with lowp_tail (bf16
+             mel product and output), as z-scores and as dB;
+           - K2, the strip log-mel kernel, on the same windows: against its
+             plain version, against the float32 GEMM front end within the
+             reference's bound, and against K1;
            - the 3x3 conv + BN + ReLU kernel (K3-K6) at the seven 3x3 conv
              shapes of ResNet-18 at 512² input and batch 128, ReLU on and
              off, and its other three entries (tiled, flat, flat_static) at
              the layer-1 shape.
-4. main    writes two merged ResNet-18 ensembles (3 heads each, seeded
+4. front   the mel-only front end as the reference's benchmark drives it:
+           fused_log_mel (K2) → finalize_features → bf16 on 128 seeded 4-s
+           windows at out_size 512, 256 and 0 (native), counts zeroed
+           before and read after (one K2 launch per call, nothing else).
+           Checks shapes, finite values and agreement with the plain
+           composition; then the front end's windows per second with K2,
+           with K1 in its place, and with K1 and lowp_tail, in turns.
+5. main    writes two merged ResNet-18 ensembles (3 heads each, seeded
            random weights, BN statistics estimated on log-mel windows of a
            seeded clip and perturbed; one shared backbone, one dense)
            and two 32 kHz WAVs (10 min = 150 windows, so the 128 bucket runs
@@ -31,18 +43,18 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            cuDNN route), bf16 and float32 labels agree on every window
            whose float32 sigmoids all lie more than 0.05 from the threshold
            (and whose leading synthetic head, for a synthetic verdict, leads
-           the runner-up by more than 0.05), and the CUDA float32 logits
-           match the CPU float32 logits on a small input.
-5. conv    the conv path: InferencePipeline(compute_dtype=bfloat16,
+           the runner-up by more than 0.05), the CUDA float32 logits
+           match the CPU float32 logits on a small input, and K2 never ran.
+6. conv    the conv path: InferencePipeline(compute_dtype=bfloat16,
            conv3x3_max_channels=512) on the shared checkpoint over the 150
            windows, counts zeroed before and read after: 16 conv launches
            per 128-window batch (32) and one K1 launch per batch, none of
-           the conv kernel in float32 with the same knob. Its logits
+           K2, none of the conv kernel in float32 with the same knob. Its logits
            against the cuDNN route of the same pipeline, and its labels on
            every clear window against the cuDNN route and float32. Then
            the steady-state windows per second of both bf16 routes and of
            float32, in turns, at batch 128.
-6. report  one JSON line of kernels, the nvidia-smi line, and last
+7. report  one JSON line of kernels, the nvidia-smi line, and last
            {"ok": true, "device": {...}}.
 """
 
@@ -236,16 +248,60 @@ def run_cli(argv):
     return json.loads(payload), seconds
 
 
+def kernel_windows():
+    """The kernels' [128, 128000] float32 windows on the card (numpy seed)."""
+    import torch
+
+    return torch.from_numpy((np.random.default_rng(0).standard_normal((BATCH, 128_000)) * 0.3)
+                            .astype(np.float32)).cuda()
+
+
+def check_lowp_tail(k1, x, cfg, standardize, f32_out, db_std):
+    """K1 with lowp_tail against its plain version and against the float32
+    tail's output ``f32_out``; → report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.ops import cuda_melspec, melspec
+
+    got = k1(x, cfg, standardize=standardize, lowp_tail=True)
+    ref = melspec.log_mel_factored(x, cfg, standardize=standardize, lowp_tail=True)
+    torch.cuda.synchronize()
+    mode = "z" if standardize else "dB"
+    check(got.dtype == ref.dtype == torch.bfloat16 and got.shape == f32_out.shape,
+          f"K1 lowp_tail ({mode}) dtype/shape")
+    d = (got.float() - ref.float()).abs()
+    one_ulp = float((d <= 2.0 ** -7 * ref.float().abs() + 2.0 ** -9).float().mean())
+    sd = db_std if standardize else None
+    ok = bool((d <= cuda_melspec.lowp_tail_tolerance(ref, sd)).all())
+    d32 = (got.float() - f32_out).abs()
+    # the reference's budget against the float32 tail on z-scores
+    # (tests/test_pallas_melspec.py:131-132); on both planes the same bound,
+    # since rounding each power and weight to bf16 moves a mel by at most
+    # 2^-8 of itself
+    ok32 = bool((d32 <= cuda_melspec.lowp_tail_tolerance(f32_out, sd)).all())
+    if standardize:
+        ok32 = ok32 and float(d32.max()) <= 0.05 and float(d32.mean()) < 5e-3
+    ms = median_ms(lambda: k1(x, cfg, standardize=standardize, lowp_tail=True))
+    print(f"[kernels] K1 lowp_tail {mode}: max|kernel-plain| {float(d.max()):.3g} "
+          f"({one_ulp:.6f} of cells within one bf16 ulp, all within the straddle bound: {ok}), "
+          f"max|lowp-f32 tail| {float(d32.max()):.3g} mean {float(d32.mean()):.3g} "
+          f"({'ok' if ok32 else 'FAILED'}), kernel {ms:.4f} ms", flush=True)
+    check(ok, f"K1 lowp_tail ({mode}) outside the bound of its plain version")
+    check(ok32, f"K1 lowp_tail ({mode}) outside the bound of the float32 tail")
+    return dict(err=float(d.max()), one_ulp_share=one_ulp, err_vs_f32_tail=float(d32.max()),
+                ms=ms)
+
+
 def check_k1(k1, cfg):
-    """K1 against its plain version at [128, 128000]; → report fields."""
+    """K1 against its plain version at [128, 128000], with the float32 tail
+    and with lowp_tail; → report fields."""
     import torch
 
     from synthetic_audio_detection_tpu_torch.ops import melspec
 
-    x = torch.from_numpy((np.random.default_rng(0).standard_normal((BATCH, 128_000)) * 0.3)
-                         .astype(np.float32)).cuda()
+    x = kernel_windows()
     report = {}
-    for standardize, tol in ((True, TOL_Z), (False, TOL_DB)):
+    for standardize, tol in ((False, TOL_DB), (True, TOL_Z)):
         got = k1(x, cfg, standardize=standardize)
         ref = melspec.log_mel_factored(x, cfg, standardize=standardize,
                                        dft_dtype=torch.bfloat16)
@@ -272,7 +328,10 @@ def check_k1(k1, cfg):
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         check(err <= tol, f"K1 ({mode}) disagrees with its plain version: {err} > {tol}")
         check(ok32, f"K1 ({mode}) outside the reference bound against float32")
-        report[standardize] = dict(err=err, tol=tol, ms=ms, plain_ms=plain_ms, err32=err32)
+        if not standardize:
+            db_std = ref.std(dim=(1, 2))  # each window's dB spread, for the z bound
+        report[standardize] = dict(err=err, tol=tol, ms=ms, plain_ms=plain_ms, err32=err32,
+                                   lowp=check_lowp_tail(k1, x, cfg, standardize, got, db_std))
 
     # bound: the block DFT on the tensor cores in bf16 and the float32 mel
     # product, the waveforms in and the z-scores out (the constants too);
@@ -290,6 +349,117 @@ def check_k1(k1, cfg):
           f"mel product {mel / 1e9:.3f} GFLOP float32, {nbytes / 1e6:.1f} MB", flush=True)
     report["bound"] = (b_ms, b_by)
     return report
+
+
+def check_k2(k2, k1, cfg):
+    """K2 against its plain version, the float32 GEMM front end and K1 at
+    [128, 128000]; → report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.ops import melspec
+
+    x = kernel_windows()
+    got = k2(x, cfg)
+    ref = melspec.log_mel_strip(x, cfg)
+    ref32 = melspec.log_mel_features(x, cfg, SR, use_gemm_dft=True, resize=False)
+    z1 = k1(x, cfg)
+    torch.cuda.synchronize()
+    check(got.shape == (BATCH, 128, 251) and got.dtype == torch.float32
+          and bool(torch.isfinite(got).all()), "K2 output shape/finite")
+    err = float((got - ref).abs().max())
+    # the reference's bound for the strip kernel's bf16 DFT against float32
+    # (tests/test_pallas_melspec.py:30-33)
+    excess32 = float(((got - ref32).abs() - 0.05 - 0.05 * ref32.abs()).max())
+    d_mean = abs(float(got.mean() - ref32.mean()))
+    d_std = abs(float(got.std() - ref32.std()))
+    ok32 = excess32 <= 0.0 and d_mean < 1e-3 and d_std < 1e-2
+    # the two formulations' budget against each other (:67)
+    vs_k1 = float((got - z1).abs().mean())
+    ms = median_ms(lambda: k2(x, cfg))
+    plain_ms = median_ms(lambda: melspec.log_mel_strip(x, cfg))
+    print(f"[kernels] K2 z: max|kernel-plain bf16| {err:.3g} (tol {TOL_Z}), against the float32 "
+          f"GEMM front end: max {float((got - ref32).abs().max()):.3g}, excess over "
+          f"0.05 + 0.05·|ref| {excess32:.3g}, |Δmean| {d_mean:.3g}, |Δstd| {d_std:.3g} "
+          f"({'ok' if ok32 else 'FAILED'}); mean|K2-K1| {vs_k1:.3g} (< 5e-3); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    check(err <= TOL_Z, f"K2 disagrees with its plain version: {err} > {TOL_Z}")
+    check(ok32, "K2 outside the reference bound against the float32 front end")
+    check(vs_k1 < 5e-3, f"K2 and K1 differ by {vs_k1} on average")
+
+    # bound: the per-frame DFT on the tensor cores in bf16 and the sparse
+    # float32 mel product over this filterbank's nonzero weights; the
+    # waveforms in, the z-scores out and the constants
+    c = k2.constants(cfg, SR, x.device)
+    n_bins, n_frames = c["cs"].shape[0] // 2, got.shape[2]
+    dft = 2.0 * BATCH * n_frames * cfg.n_fft * 2 * n_bins
+    mel = 2.0 * BATCH * n_frames * int(torch.count_nonzero(c["w"]))
+    nbytes = (x.numel() * 4 + got.numel() * 4
+              + sum(t.numel() * t.element_size() for t in c.values()))
+    b_ms, b_by = bound([(dft, PEAK_BF16), (mel, PEAK_F32)], nbytes)
+    print(f"[kernels] K2 bound {b_ms:.4f} ms ({b_by}): strip DFT {dft / 1e9:.2f} GFLOP bf16, "
+          f"mel product {mel / 1e9:.3f} GFLOP float32, {nbytes / 1e6:.1f} MB", flush=True)
+    return dict(err=err, excess32=excess32, d_mean=d_mean, d_std=d_std, vs_k1=vs_k1, ms=ms,
+                plain_ms=plain_ms, bound=(b_ms, b_by))
+
+
+def front_end(log_mel, x, cfg):
+    """The mel-only front end: log-mel → finalize_features → bf16."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.ops import melspec
+
+    return melspec.finalize_features(log_mel(x, cfg), cfg).to(torch.bfloat16)
+
+
+FRONT_SIZES = {512: (128, 512, 512), 256: (128, 256, 256), 0: (128, 128, 256)}
+
+
+def drive_front_end(zero_counts, counts):
+    """Phase 4: the mel-only front end on K2 at the three input sizes,
+    counts zeroed before and read after; then windows/s with K2, K1 and K1
+    with lowp_tail in turns. → (launch counts, {size: {route: [w/s, ...]}})."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.ops import cuda_melspec, cuda_melspec_strip, melspec
+    from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
+
+    x = torch.from_numpy(make_clip(4 * BATCH, seed=4).reshape(BATCH, 4 * SR)).cuda()
+    cfgs = {size: SpectrogramConfig.inference(out_size=size) for size in FRONT_SIZES}
+    zero_counts()
+    feats = {size: front_end(cuda_melspec_strip.fused_log_mel, x, cfg)
+             for size, cfg in cfgs.items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"[front] launches over the three front-end calls: {launches}", flush=True)
+    check(launches[cuda_melspec_strip.KERNEL.name] == len(cfgs), "one K2 launch per call")
+    check(sum(launches.values()) == len(cfgs), "only K2 runs on the mel-only front end")
+    for size, cfg in cfgs.items():
+        got = feats[size]
+        plain = front_end(melspec.log_mel_strip, x, cfg).float()
+        # the resize is a convex combination, so the kernel's z error (TOL_Z)
+        # carries over; then one bf16 rounding on each side
+        excess = float(((got.float() - plain).abs() - TOL_Z - 2.0 ** -7 * plain.abs()).max())
+        print(f"[front] out_size {size}: {tuple(got.shape)} {got.dtype}, max|front end - plain| "
+              f"{float((got.float() - plain).abs().max()):.3g}", flush=True)
+        check(tuple(got.shape) == FRONT_SIZES[size] and got.dtype == torch.bfloat16
+              and bool(torch.isfinite(got).all()), f"front end at out_size {size}")
+        check(excess <= 0.0, f"front end at out_size {size} off its plain composition")
+
+    routes = {
+        "K2": cuda_melspec_strip.fused_log_mel,
+        "K1": cuda_melspec.fused_log_mel_factored,
+        "K1 lowp_tail": lambda w, c: cuda_melspec.fused_log_mel_factored(w, c, lowp_tail=True),
+    }
+    wps = {size: {route: [] for route in routes} for size in cfgs}
+    for size, cfg in cfgs.items():
+        for route in list(routes) + list(routes)[::-1]:
+            ms = median_ms(lambda: front_end(routes[route], x, cfg))
+            wps[size][route].append(BATCH / ms * 1e3)
+        print(f"[front] out_size {size}, {BATCH} windows: "
+              + ", ".join(f"{route} {' / '.join(f'{v:.1f}' for v in vals)}"
+                          for route, vals in wps[size].items())
+              + " windows/s (front end alone, median of 20 each)", flush=True)
+    return launches, wps
 
 
 def conv_inputs(B, H, W, C, F, seed):
@@ -426,15 +596,20 @@ def main() -> int:
         preprocess_waveform,
         slice_waveform,
     )
-    from synthetic_audio_detection_tpu_torch.ops import build, cuda_conv, cuda_melspec
+    from synthetic_audio_detection_tpu_torch.ops import (
+        build,
+        cuda_conv,
+        cuda_melspec,
+        cuda_melspec_strip,
+    )
     from synthetic_audio_detection_tpu_torch.utils.config import (
         AudioConfig,
         InferenceConfig,
         SpectrogramConfig,
     )
 
-    k1, conv = cuda_melspec.KERNEL, cuda_conv.KERNEL
-    kernels = {k1.name: k1, conv.name: conv}
+    k1, k2, conv = cuda_melspec.KERNEL, cuda_melspec_strip.KERNEL, cuda_conv.KERNEL
+    kernels = {k1.name: k1, k2.name: k2, conv.name: conv}
 
     def zero_counts():
         for k in kernels.values():
@@ -454,9 +629,17 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     k1_report = check_k1(k1, SpectrogramConfig.inference())
+    t0 = time.perf_counter()
+    k2_report = check_k2(k2, k1, SpectrogramConfig.inference())
+    print(f"[kernels] K2 checks took {time.perf_counter() - t0:.1f} s", flush=True)
     conv_rows, conv_entries, conv_total = check_conv()
 
-    # 4. main path through the CLI
+    # 4. the mel-only front end
+    t0 = time.perf_counter()
+    front_launches, front_wps = drive_front_end(zero_counts, counts)
+    print(f"[front] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 5. main path through the CLI
     work = os.path.join(REPO, "synthetic_audio_detection_tpu_torch", "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -503,6 +686,7 @@ def main() -> int:
         check(bf16_launches[k1.name] > 0, "K1 was not launched by the main path")
         check(cli_launches[k1.name] == bf16_launches[k1.name], "K1 launched by the f32 path")
         check(cli_launches[conv.name] == 0, "the CLI's default route launched the conv kernel")
+        check(cli_launches[k2.name] == 0, "K2 launched by the CLI")
 
         # bf16 vs float32 verdicts away from the threshold
         audio = AudioConfig(overlap=0.0, silence_threshold=1e-3)
@@ -548,7 +732,7 @@ def main() -> int:
         print(f"[main] f32 logits, CUDA vs CPU, 4 windows: max diff {diff:.3g} (tol 1e-3)")
         check(diff <= 1e-3, "CUDA float32 logits disagree with the CPU path")
 
-        # 5. the conv path: the shared backbone's 3x3 convs through the kernel
+        # 6. the conv path: the shared backbone's 3x3 convs through the kernel
         pk = InferencePipeline(ckpts["shared"], audio=audio, spec=spec512,
                                infer=InferenceConfig(), compute_dtype=torch.bfloat16,
                                device="cuda", conv3x3_max_channels=512)
@@ -563,6 +747,7 @@ def main() -> int:
               f"conv kernel launches {path_launches[conv.name]} != "
               f"{CONVS_PER_BATCH} per batch × {n_batches}")
         check(path_launches[k1.name] == n_batches, "K1 launches on the conv path")
+        check(path_launches[k2.name] == 0, "K2 launched on the conv path")
         p32k = InferencePipeline(ckpts["shared"], audio=audio, spec=spec512,
                                  infer=InferenceConfig(), device="cuda", conv3x3_max_channels=512)
         zero_counts()
@@ -611,7 +796,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 6. report
+    # 7. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -630,6 +815,32 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
+        "lowp_tail_max_abs_err": z["lowp"]["err"],
+        "lowp_tail_max_abs_err_db": k1_report[False]["lowp"]["err"],
+        "lowp_tail_one_ulp_share": z["lowp"]["one_ulp_share"],
+        "lowp_tail_tol": "bf16 out; |kernel − plain| ≤ 2^-7·|plain| + 2^-9 + 10·log10(1 + 2^-7) "
+                         "dB (on z-scores over the window's dB std), on z-scores and dB",
+        "lowp_tail_max_abs_diff_vs_f32_tail": z["lowp"]["err_vs_f32_tail"],
+        "lowp_tail_ms": z["lowp"]["ms"],
+    }, {
+        "name": "K2 melspec_strip",
+        "route": "cuda",
+        "source": cuda_melspec_strip.SOURCE,
+        "replaces": cuda_melspec_strip.REPLACES,
+        "entry": "cuda_melspec_strip.fused_log_mel",
+        "launches": front_launches[k2.name],
+        "max_abs_err": k2_report["err"],
+        "tol": f"{TOL_Z:g} on z-scores at [128, 128000], against the plain version",
+        "vs_f32_front_end": {"excess_over_0.05+0.05|ref|": k2_report["excess32"],
+                             "abs_mean_diff": k2_report["d_mean"],
+                             "abs_std_diff": k2_report["d_std"]},
+        "mean_abs_diff_vs_k1": k2_report["vs_k1"],
+        "ms": k2_report["ms"],
+        "plain_ms": k2_report["plain_ms"],
+        "bound_ms": k2_report["bound"][0],
+        "bound_by": k2_report["bound"][1],
+        "library_ms": None,
+        "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
     }]
     conv_launches = path_launches[conv.name]
     tol = "|kernel − plain| ≤ 2^-7·|plain| + 1e-5 (one bf16 ulp), bf16 out"

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int BM = 128;  // output pixels per block
@@ -52,15 +54,6 @@ constexpr int BN = 64;   // output channels per block
 constexpr int BK = 32;   // reduction elements per step
 constexpr int SPAD = 8;  // bf16 row padding in shared memory (no bank conflicts)
 constexpr int THREADS = 256;  // 8 warps: 4 along M (32 pixels) × 2 along N (32 channels)
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <bool OUT_F32>
 __global__ void __launch_bounds__(THREADS)
@@ -161,7 +154,7 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-                for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
+                for (int ni = 0; ni < 4; ++ni) sad::mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
         }
         // the other buffer was last read before the previous barrier
         if (kt + 1 < nk) store(cur ^ 1);

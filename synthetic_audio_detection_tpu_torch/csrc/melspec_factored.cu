@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernel synthetic_audio_detection_tpu/ops/pallas_melspec.py
 // :_factored_kernel (entries fused_log_mel_factored / serving_log_mel) with
-// standardize as a flag and the float32 mel product (lowp_tail off). One call
-// of sad_melspec_factored runs three launches on the caller's stream:
+// standardize and lowp_tail as flags. One call of sad_melspec_factored runs
+// three launches on the caller's stream:
 //
 //   1. block_dft_kernel  Y[b·nb + h, :] = bf16(block h of window b) ·
 //      [cos | sin][hop, 2·ncp], float32 accumulation. A shared-memory tiled
@@ -21,12 +21,16 @@
 //      accumulated in float32 registers over the tiles. This stage is bound
 //      by moving Y (each Y row feeds four frames): the X tile is assembled
 //      once in shared memory so each Y value is read once per tile, and the
-//      mel filterbank rows are read through the read-only cache.
+//      mel filterbank rows are read through the read-only cache. With
+//      lowp_tail the power and the filterbank are rounded to bf16 before the
+//      mel product (float32 accumulation), as the TPU kernel's bf16 mel matmul.
 //   3. db_standardize_kernel  one 1024-thread block per window holds the
-//      whole [n_mels, n_frames] plane in registers: 10·log10(max(mel,1e-10)),
+//      whole [n_mels, n_frames] plane in registers and runs the tail shared
+//      with the strip kernel (melspec_tail.cuh): 10·log10(max(mel,1e-10)),
 //      the max − top_db clamp, then mean and unbiased variance in two passes,
-//      z = (db − mean) / (sqrt(var) + eps). Reductions are fixed-order trees
-//      with no atomics, so repeated runs give identical bits.
+//      z = (db − mean) / (sqrt(var) + eps); float32 out, or bf16 with
+//      lowp_tail. Reductions are fixed-order trees with no atomics, so
+//      repeated runs give identical bits.
 //
 // The kernel allocates nothing: the caller passes the Y scratch and the mel
 // and output tensors. Returns the first CUDA error (cudaGetLastError after
@@ -37,6 +41,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "melspec_tail.cuh"
+#include "mma_bf16.cuh"
+
 namespace {
 
 // ---- stage 1: block DFT GEMM ------------------------------------------------
@@ -46,20 +53,6 @@ constexpr int BN = 128;   // DFT columns per block
 constexpr int BK = 32;    // samples per k step
 constexpr int SPAD = 8;   // bf16 row padding in shared memory (no bank conflicts)
 constexpr int GEMM_THREADS = 256;
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // a: [M, K] float32 row-major (the centre-padded waveforms viewed as hop
 // blocks); bt: [N, K] bf16 (the DFT matrix transposed, k contiguous);
@@ -95,8 +88,8 @@ block_dft_kernel(const float* __restrict__ a, const __nv_bfloat16* __restrict__ 
             if (m0 + r < M)
                 v = *reinterpret_cast<const float4*>(a + (size_t)(m0 + r) * K + k0 + c);
             uint2 p;
-            p.x = pack_bf16x2(v.x, v.y);
-            p.y = pack_bf16x2(v.z, v.w);
+            p.x = sad::pack_bf16x2(v.x, v.y);
+            p.y = sad::pack_bf16x2(v.z, v.w);
             *reinterpret_cast<uint2*>(&As[r][c]) = p;
         }
         // B tile: 128 x 32 bf16 as 512 uint4
@@ -110,27 +103,8 @@ block_dft_kernel(const float* __restrict__ a, const __nv_bfloat16* __restrict__ 
         __syncthreads();
 
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi) {
-                const int r = wm * 64 + mi * 16 + g;
-                af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + tq * 2]);
-                af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + tq * 2]);
-                af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[r][kk + tq * 2 + 8]);
-                af[mi][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + tq * 2 + 8]);
-            }
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-                const int c = wn * 32 + ni * 8 + g;
-                bfr[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + tq * 2]);
-                bfr[ni][1] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + tq * 2 + 8]);
-            }
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni) mma_bf16_16816(acc[mi][ni], af[mi], bfr[ni]);
-        }
+        for (int kk = 0; kk < BK; kk += 16)
+            sad::warp_mma_64x32(As, Bs, wm * 64, wn * 32, kk, lane, acc);
         __syncthreads();
     }
 
@@ -157,12 +131,17 @@ constexpr int FT = 64;  // frequency bins per tile
 constexpr int MEL_THREADS = 256;
 constexpr int MAX_MELS = 128;
 
+__device__ __forceinline__ float round_bf16(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // y: [windows, nb, 2·ncp] (re in [0, ncp), im in [ncp, 2·ncp)); fb: [n_sig,
-// n_mels]; mel: [windows, n_mels, n_frames].
+// n_mels]; mel: [windows, n_mels, n_frames]. lowp rounds both operands of
+// the mel product to bf16.
 __global__ void __launch_bounds__(MEL_THREADS)
 frames_mel_kernel(const float* __restrict__ y, const float* __restrict__ fb,
                   float* __restrict__ mel, int nb, int ncp, int n_frames, int n_sig,
-                  int n_mels) {
+                  int n_mels, int lowp) {
     __shared__ float xr[TF][FT + 2];
     __shared__ float xi[TF][FT + 2];
     __shared__ float pw[TF][FT];
@@ -215,7 +194,7 @@ frames_mel_kernel(const float* __restrict__ y, const float* __restrict__ fb,
                 const float wi = 0.5f * xi[tl][c + 1] - 0.25f * (xi[tl][c] + xi[tl][c + 2]);
                 p = wr * wr + wi * wi;
             }
-            pw[tl][c] = p;
+            pw[tl][c] = lowp ? round_bf16(p) : p;
         }
         __syncthreads();
 
@@ -227,6 +206,7 @@ frames_mel_kernel(const float* __restrict__ y, const float* __restrict__ fb,
             for (int j = 0; j < 4; ++j) {
                 const int m = tx + 32 * j;
                 fv[j] = m < n_mels ? __ldg(fr + m) : 0.f;
+                if (lowp) fv[j] = round_bf16(fv[j]);
             }
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
@@ -252,84 +232,21 @@ frames_mel_kernel(const float* __restrict__ y, const float* __restrict__ fb,
 
 // ---- stage 3: dB, clamp, standardize ----------------------------------------
 
-constexpr int NORM_THREADS = 1024;
-constexpr int PER_THREAD = 32;  // 1024 · 32 = 32768 cells per window at most
-
-// Fixed-order block reduction over 1024 threads (sum or max); every thread
-// gets lane 0's result.
-__device__ __forceinline__ float block_reduce(float v, float* red, bool take_max) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-        const float w = __shfl_xor_sync(0xffffffffu, v, o);
-        v = take_max ? fmaxf(v, w) : v + w;
-    }
-    if (lane == 0) red[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-        v = red[lane];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            const float w = __shfl_xor_sync(0xffffffffu, v, o);
-            v = take_max ? fmaxf(v, w) : v + w;
-        }
-        if (lane == 0) red[32] = v;
-    }
-    __syncthreads();
-    const float r = red[32];
-    __syncthreads();
-    return r;
-}
-
-// mel, out: [windows, n] with n = n_mels · n_frames (the same layout).
-__global__ void __launch_bounds__(NORM_THREADS)
-db_standardize_kernel(const float* __restrict__ mel, float* __restrict__ out, int n,
+// mel: [windows, n] float32, out: [windows, n] OutT, n = n_mels · n_frames
+// (the same layout).
+template <typename OutT>
+__global__ void __launch_bounds__(sad::TAIL_THREADS)
+db_standardize_kernel(const float* __restrict__ mel, OutT* __restrict__ out, int n,
                       float top_db, float eps, int standardize) {
     __shared__ float red[33];
     const size_t base = (size_t)blockIdx.x * n;
-    float v[PER_THREAD];
-    float mx = -INFINITY;
+    float v[sad::TAIL_PER_THREAD];
 #pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-        const int idx = threadIdx.x + k * NORM_THREADS;
-        float d = -INFINITY;
-        if (idx < n) d = 10.f * log10f(fmaxf(mel[base + idx], 1e-10f));
-        v[k] = d;
-        mx = fmaxf(mx, d);
+    for (int k = 0; k < sad::TAIL_PER_THREAD; ++k) {
+        const int idx = threadIdx.x + k * sad::TAIL_THREADS;
+        v[k] = idx < n ? mel[base + idx] : 0.f;
     }
-    const float floor_db = block_reduce(mx, red, true) - top_db;
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-        if (threadIdx.x + k * NORM_THREADS < n) {
-            v[k] = fmaxf(v[k], floor_db);
-            s += v[k];
-        }
-    }
-    if (!standardize) {
-#pragma unroll
-        for (int k = 0; k < PER_THREAD; ++k) {
-            const int idx = threadIdx.x + k * NORM_THREADS;
-            if (idx < n) out[base + idx] = v[k];
-        }
-        return;
-    }
-    const float mean = block_reduce(s, red, false) / (float)n;
-    float q = 0.f;
-#pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-        if (threadIdx.x + k * NORM_THREADS < n) {
-            const float d = v[k] - mean;
-            q += d * d;
-        }
-    }
-    const float var = block_reduce(q, red, false) / (float)(n > 1 ? n - 1 : 1);
-    const float denom = sqrtf(var) + eps;
-#pragma unroll
-    for (int k = 0; k < PER_THREAD; ++k) {
-        const int idx = threadIdx.x + k * NORM_THREADS;
-        if (idx < n) out[base + idx] = (v[k] - mean) / denom;
-    }
+    sad::db_standardize_store(v, out + base, n, top_db, eps, standardize, red);
 }
 
 }  // namespace
@@ -338,10 +255,11 @@ extern "C" int sad_melspec_factored(const void* xpad, const void* cs_t, const vo
                                     void* y, void* mel, void* out, int n_windows,
                                     int n_blocks, int hop, int ncp, int n_frames, int n_sig,
                                     int n_mels, float top_db, float eps, int standardize,
-                                    void* stream) {
+                                    int lowp_tail, void* stream) {
     const int M = n_windows * n_blocks, N = 2 * ncp, K = hop;
     if (n_windows <= 0 || N % BN != 0 || K % BK != 0 || n_mels > MAX_MELS ||
-        n_sig >= ncp || n_frames + 3 > n_blocks || n_mels * n_frames > NORM_THREADS * PER_THREAD ||
+        n_sig >= ncp || n_frames + 3 > n_blocks ||
+        n_mels * n_frames > sad::TAIL_THREADS * sad::TAIL_PER_THREAD ||
         (M + BM - 1) / BM > 65535 || n_windows > 65535)
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -356,13 +274,17 @@ extern "C" int sad_melspec_factored(const void* xpad, const void* cs_t, const vo
     dim3 g2((n_frames + TF - 1) / TF, n_windows);
     frames_mel_kernel<<<g2, MEL_THREADS, 0, s>>>(
         static_cast<const float*>(y), static_cast<const float*>(fb), static_cast<float*>(mel),
-        n_blocks, ncp, n_frames, n_sig, n_mels);
+        n_blocks, ncp, n_frames, n_sig, n_mels, lowp_tail);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
 
-    db_standardize_kernel<<<n_windows, NORM_THREADS, 0, s>>>(
-        static_cast<const float*>(mel), static_cast<float*>(out), n_mels * n_frames, top_db,
-        eps, standardize);
+    const float* mel_f = static_cast<const float*>(mel);
+    if (lowp_tail)
+        db_standardize_kernel<<<n_windows, sad::TAIL_THREADS, 0, s>>>(
+            mel_f, static_cast<__nv_bfloat16*>(out), n_mels * n_frames, top_db, eps, standardize);
+    else
+        db_standardize_kernel<<<n_windows, sad::TAIL_THREADS, 0, s>>>(
+            mel_f, static_cast<float*>(out), n_mels * n_frames, top_db, eps, standardize);
     return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 Counterpart of the reference package's ``ops/pallas_melspec.py``
 (``fused_log_mel_factored`` / ``serving_log_mel``, kernel
 ``_factored_kernel``). [B, T] waveforms → [B, n_mels, n_frames] standardized
-log-mel, or the clamped dB with ``standardize=False``.
+log-mel, or the clamped dB with ``standardize=False``; float32, or with
+``lowp_tail`` a bf16 mel product (float32 accumulation) and bf16 out.
 
 For a tensor on the CPU the wrapper runs the plain version,
 ``ops.melspec.log_mel_factored`` at bf16 DFT precision. For a CUDA tensor it
@@ -15,7 +16,8 @@ padded signal.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +29,26 @@ SOURCE = "synthetic_audio_detection_tpu_torch/csrc/melspec_factored.cu"
 REPLACES = "synthetic_audio_detection_tpu/ops/pallas_melspec.py:169"
 
 _NCP_ALIGN = 64  # cos | sin columns padded so 2·ncp is a multiple of the 128-column tile
+
+# Two lowp_tail results from the same bf16 DFT operands (kernel and plain
+# version, or the port and the reference) round the same float32 powers to
+# bf16, except where the two powers, summed in different orders, straddle a
+# bf16 rounding boundary: there one term moves by one bf16 ulp, at most 2^-7
+# of itself. A mel value is a sum of non-negative terms, so it moves by at
+# most 2^-7 of itself, and its dB by at most 10·log10(1 + 2^-7).
+LOWP_STRADDLE_DB = 10.0 * math.log10(1.0 + 2.0 ** -7)
+
+
+def lowp_tail_tolerance(plain: torch.Tensor, db_std: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Element-wise bound on |a − b| for two lowp_tail results of the same
+    windows, ``plain`` being one of them: one bf16 ulp of the output
+    (2^-7·|plain| + 2^-9) plus the straddle, LOWP_STRADDLE_DB on the dB
+    plane or LOWP_STRADDLE_DB / σ on z-scores, σ ([B]) each window's dB
+    standard deviation (the shift of the window's mean and σ is an average
+    over all its cells, and negligible)."""
+    straddle = LOWP_STRADDLE_DB if db_std is None else LOWP_STRADDLE_DB / db_std[:, None, None]
+    return 2.0 ** -7 * plain.float().abs() + 2.0 ** -9 + straddle
 
 
 def _round_up(x: int, m: int) -> int:
@@ -60,7 +82,7 @@ class FactoredMelKernel:
             lib = build.load(self.name)
             lib.sad_melspec_factored.argtypes = (
                 [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             lib.sad_melspec_factored.restype = ctypes.c_int
             lib.sad_cuda_error_string.argtypes = [ctypes.c_int]
             lib.sad_cuda_error_string.restype = ctypes.c_char_p
@@ -94,7 +116,8 @@ class FactoredMelKernel:
         return self._consts[key]
 
     def __call__(self, waveforms: torch.Tensor, cfg: SpectrogramConfig,
-                 sample_rate: int = 32_000, standardize: bool = True) -> torch.Tensor:
+                 sample_rate: int = 32_000, standardize: bool = True,
+                 lowp_tail: bool = False) -> torch.Tensor:
         if waveforms.device.type != "cuda":
             raise ValueError(f"the kernel takes CUDA tensors, got {waveforms.device}")
         if waveforms.ndim != 2:
@@ -112,7 +135,7 @@ class FactoredMelKernel:
         n_mels = cfg.n_mels
         y = torch.empty((B * nb, 2 * ncp), dtype=torch.float32, device=x.device)
         mel = torch.empty((B, n_mels, n_frames), dtype=torch.float32, device=x.device)
-        out = torch.empty_like(mel)
+        out = torch.empty_like(mel, dtype=torch.bfloat16 if lowp_tail else torch.float32)
         lib = self.load()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.sad_melspec_factored(
@@ -120,7 +143,7 @@ class FactoredMelKernel:
             ctypes.c_void_p(fb.data_ptr()), ctypes.c_void_p(y.data_ptr()),
             ctypes.c_void_p(mel.data_ptr()), ctypes.c_void_p(out.data_ptr()),
             B, nb, hop, ncp, n_frames, n_sig, n_mels,
-            float(cfg.top_db), float(cfg.eps), int(standardize),
+            float(cfg.top_db), float(cfg.eps), int(standardize), int(lowp_tail),
             ctypes.c_void_p(stream))
         if rc != 0:
             msg = lib.sad_cuda_error_string(rc).decode()
@@ -133,20 +156,22 @@ KERNEL = FactoredMelKernel()
 
 
 def fused_log_mel_factored(waveforms: torch.Tensor, cfg: SpectrogramConfig,
-                           sample_rate: int = 32_000,
-                           standardize: bool = True) -> torch.Tensor:
-    """[B, T] float32 or int16 → [B, n_mels, n_frames] float32. CPU: the
-    plain version; CUDA: the kernel; any other device raises."""
+                           sample_rate: int = 32_000, standardize: bool = True,
+                           lowp_tail: bool = False) -> torch.Tensor:
+    """[B, T] float32 or int16 → [B, n_mels, n_frames], float32 or, with
+    ``lowp_tail``, bf16 (for a bf16 consumer only: z-scores keep about 3
+    decimal digits). CPU: the plain version; CUDA: the kernel; any other
+    device raises."""
     if waveforms.device.type == "cpu":
         return melspec.log_mel_factored(dequantize(waveforms), cfg, sample_rate,
                                         standardize=standardize,
-                                        dft_dtype=torch.bfloat16)
+                                        dft_dtype=torch.bfloat16, lowp_tail=lowp_tail)
     if waveforms.device.type != "cuda":
         raise ValueError(f"no log-mel kernel for device {waveforms.device}")
-    return KERNEL(waveforms, cfg, sample_rate, standardize)
+    return KERNEL(waveforms, cfg, sample_rate, standardize, lowp_tail)
 
 
 def serving_log_mel(waveforms: torch.Tensor, cfg: SpectrogramConfig,
-                    sample_rate: int = 32_000) -> torch.Tensor:
+                    sample_rate: int = 32_000, lowp_tail: bool = False) -> torch.Tensor:
     """The serving pipeline's mel front end (standardized)."""
-    return fused_log_mel_factored(waveforms, cfg, sample_rate)
+    return fused_log_mel_factored(waveforms, cfg, sample_rate, lowp_tail=lowp_tail)

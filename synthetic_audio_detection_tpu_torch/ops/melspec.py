@@ -13,7 +13,9 @@ return tensors on whatever device their input lies on.
 ``ops/cuda_melspec.py`` (factored block DFT, the Hann window applied in
 frequency): with ``dft_dtype=torch.bfloat16`` it reproduces the kernel's
 precision (bf16 DFT operands, float32 accumulation), with ``torch.float32``
-it is the exact algorithm.
+it is the exact algorithm. ``log_mel_strip`` is that of
+``ops/cuda_melspec_strip.py`` (one DFT per frame, the Hann window applied
+in time), at the kernel's bf16 DFT precision.
 """
 
 from __future__ import annotations
@@ -107,6 +109,17 @@ def significant_bins(fb: np.ndarray, rel_tol: float = 1e-7) -> int:
     row_sums = fb.sum(axis=1)
     keep = np.nonzero(row_sums > rel_tol * row_sums.max())[0]
     return int(keep[-1]) + 1
+
+
+def strip_filterbank(fb: np.ndarray) -> np.ndarray:
+    """The filterbank rows the strip DFT multiplies: the significant bins
+    rounded up to a multiple of 128 (768 at the defaults), rows past the
+    last rFFT bin zero — the reference strip kernel's geometry."""
+    n_bins = -(-significant_bins(fb) // 128) * 128
+    rows = min(n_bins, fb.shape[0])
+    out = np.zeros((n_bins, fb.shape[1]), np.float32)
+    out[:rows] = fb[:rows]
+    return out
 
 
 @functools.lru_cache(maxsize=8)
@@ -261,22 +274,50 @@ def standardize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 _standardize = standardize  # log_mel_factored's flag of the same name shadows it
 
 
+def _log_mel_tail(p: torch.Tensor, fb: np.ndarray, cfg: SpectrogramConfig,
+                  standardize: bool, lowp_tail: bool) -> torch.Tensor:
+    """Power [B, n_frames, n_bins] → [B, n_mels, n_frames]: the mel product
+    (float32, or bf16 operands with float32 accumulation under
+    ``lowp_tail``), dB with the top_db clamp, then standardized unless
+    ``standardize`` is False; bf16 out under ``lowp_tail``."""
+    fb_t = _const(fb, p)
+    mel = _gemm_f32(p, fb_t, torch.bfloat16) if lowp_tail else torch.matmul(p, fb_t)
+    db = amplitude_to_db(mel.transpose(1, 2), cfg.top_db)
+    out = _standardize(db, cfg.eps) if standardize else db
+    return out.to(torch.bfloat16) if lowp_tail else out
+
+
 def log_mel_factored(
     waveforms: torch.Tensor,
     cfg: SpectrogramConfig,
     sample_rate: int = 32_000,
     standardize: bool = True,
     dft_dtype: torch.dtype = torch.bfloat16,
+    lowp_tail: bool = False,
 ) -> torch.Tensor:
     """[B, T] → [B, n_mels, n_frames]: the factored-DFT log-mel, standardized
     or stopped at the clamped dB. The plain version of the kernel in
-    ops/cuda_melspec.py (float32 mel matmul)."""
+    ops/cuda_melspec.py: a float32 mel matmul and float32 out, or with
+    ``lowp_tail`` the power and filterbank rounded to bf16 for the mel
+    matmul and bf16 out."""
     fb = config_filterbank(cfg, sample_rate)
     n_cols = significant_bins(fb)
     p = power_spectrogram_factored(waveforms.float(), cfg, n_cols, cfg.power, dft_dtype)
-    mel = torch.matmul(p, _const(fb[:n_cols], p)).transpose(1, 2)
-    db = amplitude_to_db(mel, cfg.top_db)
-    return _standardize(db, cfg.eps) if standardize else db
+    return _log_mel_tail(p, fb[:n_cols], cfg, standardize, lowp_tail)
+
+
+def log_mel_strip(waveforms: torch.Tensor, cfg: SpectrogramConfig,
+                  sample_rate: int = 32_000) -> torch.Tensor:
+    """[B, T] → [B, n_mels, n_frames] standardized log-mel through the strip
+    DFT: each frame times the periodic Hann (float32, rounded once to bf16)
+    against the bf16 cos|sin of the first ``strip_filterbank`` rows' bins,
+    float32 accumulation, then the float32 mel product. The plain version
+    of the kernel in ops/cuda_melspec_strip.py."""
+    fb = strip_filterbank(config_filterbank(cfg, sample_rate))
+    frames = frame_signal(waveforms.float(), cfg.n_fft, cfg.hop_length, cfg.center, cfg.pad_mode)
+    window = _const(hann_window(cfg.n_fft), frames)
+    p = power_spectrogram_gemm(frames, window, fb.shape[0], cfg.power, torch.bfloat16)
+    return _log_mel_tail(p, fb, cfg, standardize=True, lowp_tail=False)
 
 
 # ---------------------------------------------------------------------------
@@ -320,15 +361,17 @@ def finalize_features(z: torch.Tensor, cfg: SpectrogramConfig) -> torch.Tensor:
     which is the reference package's ``jax.image.resize(..., "linear")``
     bit for bit at every size; without it the two agree only where the
     resize upsamples both axes (512², 256²) and differ by O(1) below the
-    mel's own resolution (e.g. 64²). Native mode
+    mel's own resolution (e.g. 64²). A bf16 ``z`` (``lowp_tail``) is
+    resized in float32 and returned in bf16: PyTorch has no bf16
+    antialiased resize on the CPU. Native mode
     (out_size 0) zero-pads the frame axis to a multiple of 128 — after
     standardizing, where zero is the mean."""
     if cfg.is_native:
         w = -(-z.shape[2] // 128) * 128
         return F.pad(z, (0, w - z.shape[2]))
-    return F.interpolate(z[:, None], size=(cfg.out_size, cfg.out_size),
+    return F.interpolate(z[:, None].float(), size=(cfg.out_size, cfg.out_size),
                          mode="bilinear", align_corners=False,
-                         antialias=True)[:, 0]
+                         antialias=True)[:, 0].to(z.dtype)
 
 
 def log_mel_features(

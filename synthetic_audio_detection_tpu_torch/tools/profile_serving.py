@@ -1,16 +1,22 @@
 """Where the device time of one serving batch goes, on one NVIDIA GPU.
 
     python -m synthetic_audio_detection_tpu_torch.tools.profile_serving
+    python -m synthetic_audio_detection_tpu_torch.tools.profile_serving \
+        --routes front-k2,front-k1,front-k1-lowp
 
 Builds a shared-backbone ResNet-18 ensemble (3 heads, weights from
 ``--seed``) and a batch of seeded noise windows, runs the bf16
 ``InferencePipeline`` at 512² on each route (``cudnn``: every conv through
 cuDNN; ``kernel``: the 3x3 convs through the hand-written conv kernel,
 ``conv3x3_max_channels=512``), warms it up, then traces ``--batches``
-128-window batches with ``torch.profiler``. Prints, per route, the host wall
-per batch, the device's busy and idle share of that wall, and the device
-time per batch by part, largest first, and with ``--out`` writes the same
-as JSON. Without CUDA it exits non-zero.
+128-window batches with ``torch.profiler``. The ``front-*`` routes trace
+the mel-only front end alone on the same windows, already on the card:
+log-mel (``front-k2``: the strip kernel's ``fused_log_mel``; ``front-k1``:
+the factored kernel; ``front-k1-lowp``: the factored kernel with
+``lowp_tail``) → ``finalize_features`` at 512² → bf16. Prints, per route,
+the host wall per batch, the device's busy and idle share of that wall, and
+the device time per batch by part, largest first, and with ``--out`` writes
+the same as JSON. Without CUDA it exits non-zero.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ PARTS: List[Tuple[str, Tuple[str, ...]]] = [
     ("D2H copy", ("Memcpy DtoH",)),
     ("conv kernel (K3)", ("conv3x3_kernel",)),
     ("K1 log-mel kernel", ("block_dft_kernel", "frames_mel_kernel", "db_standardize_kernel")),
+    ("K2 log-mel kernel", ("strip_dft_power_kernel", "strip_mel_tail_kernel")),
     ("max-pool", ("max_pool",)),
     ("resize", ("upsample", "bilinear", "interpolate")),
     ("cuDNN convolutions", ("conv", "xmma", "implicit", "cudnn", "fprop", "nhwc", "nchw")),
@@ -61,17 +68,18 @@ def busy_us(intervals: List[Tuple[float, float]]) -> float:
     return total
 
 
-def profile_route(pipe, windows: np.ndarray, batches: int) -> Dict:
+def profile_route(run, batches: int) -> Dict:
+    """Trace ``batches`` calls of ``run()`` (one batch each) after warm-up."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        pipe.logits_for_windows(windows)
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(batches):
-            pipe.logits_for_windows(windows)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -112,6 +120,7 @@ def main(argv=None) -> int:
     from synthetic_audio_detection_tpu_torch.ensemble.multihead import build_ensemble
     from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
     from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+    from synthetic_audio_detection_tpu_torch.ops import cuda_melspec, cuda_melspec_strip, melspec
     from synthetic_audio_detection_tpu_torch.utils.config import InferenceConfig, SpectrogramConfig
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -124,14 +133,27 @@ def main(argv=None) -> int:
     ens = build_ensemble(sds, ["SynA", "SynB", "SynC", "Real"])
     windows = (np.random.default_rng(args.seed).standard_normal((128, 128_000)) * 0.1
                ).astype(np.float32)
-    knobs = {"cudnn": 0, "kernel": 512}
+    spec = SpectrogramConfig.inference(512)
+    log_mels = {
+        "front-k2": cuda_melspec_strip.fused_log_mel,
+        "front-k1": cuda_melspec.fused_log_mel_factored,
+        "front-k1-lowp": lambda x, c: cuda_melspec.fused_log_mel_factored(x, c, lowp_tail=True),
+    }
+    x = torch.from_numpy(windows).cuda()
+
+    def runner(route):
+        if route in log_mels:
+            return lambda: melspec.finalize_features(log_mels[route](x, spec), spec).to(
+                torch.bfloat16)
+        pipe = InferencePipeline(ens, spec=spec, infer=InferenceConfig(),
+                                 compute_dtype=torch.bfloat16, device="cuda",
+                                 conv3x3_max_channels={"cudnn": 0, "kernel": 512}[route])
+        return lambda: pipe.logits_for_windows(windows)
+
     result = {"device": smi, "torch": torch.__version__, "batch": 128, "input": 512,
               "routes": {}}
     for route in args.routes.split(","):
-        pipe = InferencePipeline(ens, spec=SpectrogramConfig.inference(512),
-                                 infer=InferenceConfig(), compute_dtype=torch.bfloat16,
-                                 device="cuda", conv3x3_max_channels=knobs[route])
-        r = profile_route(pipe, windows, args.batches)
+        r = profile_route(runner(route), args.batches)
         result["routes"][route] = r
         print(f"[profile] {route}: wall {r['wall_ms_per_batch']:.3f} ms per 128-window batch, "
               f"device busy {r['device_busy_ms_per_batch']:.3f} ms (idle "

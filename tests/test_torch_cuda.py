@@ -13,7 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from synthetic_audio_detection_tpu_torch.ops import cuda_conv, cuda_conv_flat, cuda_melspec, melspec
+from synthetic_audio_detection_tpu_torch.ops import (
+    cuda_conv,
+    cuda_conv_flat,
+    cuda_melspec,
+    cuda_melspec_strip,
+    melspec,
+)
 from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
 
 CFG = SpectrogramConfig(mel_norm="slaney")
@@ -62,6 +68,52 @@ def test_factored_mel_kernel_is_deterministic_and_takes_int16():
     torch.testing.assert_close(cuda_melspec.fused_log_mel_factored(pcm, CFG),
                                cuda_melspec.fused_log_mel_factored(pcm.float() / 32768.0, CFG),
                                rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("standardize", [True, False])
+def test_factored_mel_kernel_lowp_tail_matches_plain_version(standardize):
+    """lowp_tail: bf16 out, within one bf16 ulp plus the one-ulp straddle of
+    a bf16 power term (cuda_melspec.lowp_tail_tolerance) of the plain
+    version."""
+    _cuda_or_skip()
+    x = _waves(8, 128_000)
+    got = cuda_melspec.fused_log_mel_factored(x, CFG, standardize=standardize, lowp_tail=True)
+    ref = melspec.log_mel_factored(x, CFG, standardize=standardize, lowp_tail=True)
+    db_std = melspec.log_mel_factored(x, CFG, standardize=False).std(dim=(1, 2))
+    torch.cuda.synchronize()
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    tol = cuda_melspec.lowp_tail_tolerance(ref, db_std if standardize else None)
+    assert bool(((got.float() - ref.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,samples", [(2, 32_000), (3, 128_000), (128, 128_000)])
+def test_strip_mel_kernel_matches_plain_version(batch, samples):
+    """Same bf16 operands on both sides (the windowed frame rounded once, the
+    cos|sin): the float32 summation order of the DFT and mel products is all
+    that differs (1e-3 on z-scores)."""
+    _cuda_or_skip()
+    x = _waves(batch, samples, seed=6)
+    before = cuda_melspec_strip.KERNEL.launches
+    got = cuda_melspec_strip.fused_log_mel(x, CFG)
+    ref = melspec.log_mel_strip(x, CFG)
+    torch.cuda.synchronize()
+    assert cuda_melspec_strip.KERNEL.launches == before + 1
+    assert got.shape == (batch, 128, 1 + samples // 512)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_strip_mel_kernel_is_deterministic_and_raises():
+    _cuda_or_skip()
+    x = _waves(8, 128_000)
+    a = cuda_melspec_strip.fused_log_mel(x, CFG)
+    assert torch.equal(a, cuda_melspec_strip.fused_log_mel(x, CFG))
+    with pytest.raises(TypeError):
+        cuda_melspec_strip.fused_log_mel(x.to(torch.float16), CFG)
+    with pytest.raises(RuntimeError, match="melspec_strip launch failed"):
+        cuda_melspec_strip.fused_log_mel(_waves(1, 32_000 * 9), CFG)  # 563 frames > 256
 
 
 def _conv_inputs(B, H, W, C, F, seed=7):

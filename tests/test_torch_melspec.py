@@ -67,6 +67,34 @@ def test_plain_factored_f32_within_kernel_bound(waves, pallas_out, standardize):
         np.testing.assert_allclose(got, ref, atol=1.5)
 
 
+@pytest.mark.parametrize("standardize", [True, False])
+def test_plain_factored_lowp_tail_matches_pallas_kernel(waves, standardize):
+    """lowp_tail: bf16 power and filterbank in the mel product, bf16 out, on
+    both sides. Beyond the float32-tail bound above, two summation orders
+    may round a power term to neighbouring bf16 values, and the output's
+    own rounding adds one ulp: cuda_melspec.lowp_tail_tolerance."""
+    x = torch.from_numpy(waves)
+    ref = fused_log_mel_factored(jnp.asarray(waves), CFG, interpret=True,
+                                 standardize=standardize, lowp_tail=True)
+    got = cuda_melspec.fused_log_mel_factored(x, CFG, standardize=standardize, lowp_tail=True)
+    assert ref.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    ref = torch.from_numpy(np.asarray(ref, np.float32))
+    assert got.shape == ref.shape == (2, 128, 251)
+    db_std = TM.log_mel_factored(x, CFG, standardize=False).std(dim=(1, 2))
+    tol = (cuda_melspec.lowp_tail_tolerance(ref, db_std if standardize else None)
+           + (1e-4 if standardize else 1e-3))
+    assert bool(((got.float() - ref).abs() <= tol).all())
+
+
+def test_lowp_tail_wrapper_uses_plain_version_on_cpu(waves):
+    x = torch.from_numpy(waves[:1])
+    before = cuda_melspec.KERNEL.launches
+    got = cuda_melspec.serving_log_mel(x, CFG, lowp_tail=True)
+    assert torch.equal(got, TM.log_mel_factored(x, CFG, lowp_tail=True))
+    assert got.dtype == torch.bfloat16
+    assert cuda_melspec.KERNEL.launches == before
+
+
 def test_plain_factored_f32_matches_gemm_front_end(waves):
     """Factored and direct GEMM DFT are the same transform: float32
     rounding only (1e-4 on z-scores)."""
@@ -183,6 +211,17 @@ def test_finalize_features_matches_jax(out_size):
     ref = np.asarray(JM.finalize_features(jnp.asarray(z), cfg))
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("out_size", [512, 256, 0])
+def test_finalize_features_keeps_bf16(out_size):
+    """A bf16 log-mel (lowp_tail) is resized in float32 and comes back bf16."""
+    cfg = SpectrogramConfig(mel_norm="slaney", out_size=out_size)
+    z = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 128, 251))
+                         .astype(np.float32)).to(torch.bfloat16)
+    got = TM.finalize_features(z, cfg)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, TM.finalize_features(z.float(), cfg).to(torch.bfloat16))
 
 
 def test_db_and_standardize_match_jax():

@@ -11,6 +11,9 @@ from synthetic_audio_detection_tpu_torch.tools import profile_serving as P
 @pytest.mark.parametrize("name,part", [
     ("void (anonymous namespace)::conv3x3_kernel<false>(...)", "conv kernel (K3)"),
     ("block_dft_kernel", "K1 log-mel kernel"),
+    ("void (anonymous namespace)::db_standardize_kernel<__nv_bfloat16>(...)", "K1 log-mel kernel"),
+    ("(anonymous namespace)::strip_dft_power_kernel(...)", "K2 log-mel kernel"),
+    ("(anonymous namespace)::strip_mel_tail_kernel(...)", "K2 log-mel kernel"),
     ("Memcpy HtoD (Pageable -> Device)", "H2D copy"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cuDNN convolutions"),
     ("void at::native::max_pool_forward_nhwc<c10::BFloat16>", "max-pool"),
