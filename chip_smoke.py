@@ -19,10 +19,11 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            - K2, the strip log-mel kernel, on the same windows: against its
              plain version, against the float32 GEMM front end within the
              reference's bound, and against K1;
-           - the 3x3 conv + BN + ReLU kernel (K3-K6) at the seven 3x3 conv
-             shapes of ResNet-18 at 512² input and batch 128, ReLU on and
-             off, and its other three entries (tiled, flat, flat_static) at
-             the layer-1 shape.
+           - the 3x3 conv + BN + ReLU kernel (K3-K6, wgmma fed by a TMA
+             ring) at the seven 3x3 conv shapes of ResNet-18 at 512² input
+             and batch 128, bf16 out with ReLU on and off and float32 out,
+             with its TFLOP/s per shape; then its other three entries
+             (tiled, flat, flat_static) at the layer-1 shape.
 4. front   the mel-only front end as the reference's benchmark drives it:
            fused_log_mel (K2) → finalize_features → bf16 on 128 seeded 4-s
            windows at out_size 512, 256 and 0 (native), counts zeroed
@@ -485,8 +486,9 @@ def conv_err(got, ref):
 
 def check_conv():
     """The conv kernel against its plain version at ResNet-18's 3x3 shapes
-    at 512² and batch 128, and its other entries at the layer-1 shape;
-    → (per-shape rows, per-entry rows)."""
+    at 512² and batch 128 (bf16 out with ReLU on and off, float32 out), and
+    its other entries at the layer-1 shape; → (per-shape rows, per-entry
+    rows, per-batch totals)."""
     import torch
     import torch.nn.functional as F
 
@@ -496,14 +498,17 @@ def check_conv():
     for i, (where, H, W, C, Fo, stride, count) in enumerate(CONV_SHAPES):
         x, w, scale, bias = conv_inputs(BATCH, H, W, C, Fo, seed=100 + i)
         errs = []
-        for relu in (True, False):
-            got = cuda_conv.conv3x3_bn_relu(x, w, scale, bias, stride=stride, relu=relu)
-            ref = cuda_conv.conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu)
+        for relu, out_dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
+                                (True, torch.float32)):
+            got = cuda_conv.conv3x3_bn_relu(x, w, scale, bias, stride=stride, relu=relu,
+                                            out_dtype=out_dtype)
+            ref = cuda_conv.conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu, out_dtype)
             torch.cuda.synchronize()
-            check(got.shape == ref.shape == (BATCH, H // stride, W // stride, Fo),
-                  f"conv {where} shape")
+            check(got.shape == ref.shape == (BATCH, H // stride, W // stride, Fo)
+                  and got.dtype == out_dtype, f"conv {where} shape")
             err, ok = conv_err(got, ref)
-            check(ok, f"conv {where} relu={relu} disagrees with its plain version ({err})")
+            check(ok, f"conv {where} relu={relu} {out_dtype} disagrees with its plain version "
+                      f"({err})")
             errs.append(err)
         # the port's cuDNN route for the same function: BN folded into the
         # bf16 weight and bias, channels_last, then the ReLU
@@ -519,13 +524,14 @@ def check_conv():
         nbytes = 2.0 * (x.numel() + w.numel() + BATCH * Ho * Wo * Fo) + 8.0 * Fo
         b_ms, b_by = bound([(flops, PEAK_BF16)], nbytes)
         row = dict(where=where, x=[BATCH, H, W, C], F=Fo, stride=stride, per_batch=count,
-                   max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   tiles=cuda_conv.tile_plan(Fo, Ho, Wo, stride), max_abs_err=max(errs),
+                   ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9, mb=nbytes / 1e6)
         rows.append(row)
         print(f"[kernels] conv {where:15s} [{BATCH},{H},{W},{C}]→{Fo} s{stride}: "
-              f"max|kernel-plain| {max(errs):.3g} (≤ 2^-7·|ref| + 1e-5), kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f}, cuDNN {library_ms:.4f}, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"max|kernel-plain| {max(errs):.3g} (≤ 2^-7·|ref| + 1e-5; bf16 ReLU on/off, "
+              f"float32), kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f}, cuDNN {library_ms:.4f}, bound {b_ms:.4f} ms ({b_by})", flush=True)
 
         if where == "layer1":
             # the other three TPU layouts' entries, the same kernel
@@ -542,7 +548,8 @@ def check_conv():
                 err, ok = conv_err(fn(), ref)
                 check(ok, f"{entry} disagrees with the plain version ({err})")
                 e_ms = median_ms(fn)
-                entries[kid] = dict(row, entry=entry, max_abs_err=err, ms=e_ms, per_batch=0)
+                entries[kid] = dict(row, entry=entry, max_abs_err=err, ms=e_ms,
+                                    tflops=flops / e_ms / 1e9, per_batch=0)
                 print(f"[kernels] {kid} {entry} at layer1: max|kernel-plain| {err:.3g}, "
                       f"kernel {e_ms:.4f} ms", flush=True)
         del x, w
@@ -553,7 +560,8 @@ def check_conv():
     # is what its operations and its bytes would each take over the batch
     _, total["bound_by"] = bound([(total["gflop"] * 1e9, PEAK_BF16)], total["mb"] * 1e6)
     print(f"[kernels] conv, the {CONVS_PER_BATCH} 3x3 convs of one 128-window batch: kernel "
-          f"{total['ms']:.3f} ms, plain {total['plain_ms']:.3f}, cuDNN {total['library_ms']:.3f}, "
+          f"{total['ms']:.3f} ms ({total['gflop'] / total['ms']:.1f} TFLOP/s), plain "
+          f"{total['plain_ms']:.3f}, cuDNN {total['library_ms']:.3f}, "
           f"bound {total['bound_ms']:.3f} ({total['bound_by']}; {total['gflop'] / 1e3:.3f} TFLOP, "
           f"{total['mb'] / 1e3:.3f} GB)", flush=True)
     return rows, entries, total
@@ -620,11 +628,12 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.build(list(kernels))
-    print(f"[build] {len(kernels)} source(s) in {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in kernels:
+    sources = [k1.name, k2.name, cuda_conv.LIBRARY]
+    build.build(sources)
+    print(f"[build] {len(sources)} source(s) in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in sources:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "warning", "Compiling entry")):
                 print(f"[build] {name}: {line.strip()}")
 
     # 3. kernels against their plain versions
@@ -843,13 +852,15 @@ def main() -> int:
         "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
     }]
     conv_launches = path_launches[conv.name]
-    tol = "|kernel − plain| ≤ 2^-7·|plain| + 1e-5 (one bf16 ulp), bf16 out"
+    tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5 (one bf16 ulp), bf16 out with ReLU on and "
+           "off, and float32 out")
     report.append({
         "name": "K3 conv3x3_bn_relu",
         "route": "cuda",
         "source": cuda_conv.SOURCE,
         "replaces": cuda_conv.REPLACES["K3"],
         "entry": "cuda_conv.conv3x3_bn_relu",
+        "kernel": f"{cuda_conv.LIBRARY}: wgmma fed by a TMA ring",
         "launches": conv_launches,
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "tol": tol,

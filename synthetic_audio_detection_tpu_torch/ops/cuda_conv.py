@@ -1,34 +1,38 @@
-"""The 3x3 conv + per-channel affine + ReLU kernel (csrc/conv3x3_bn_relu.cu)
+"""The 3x3 conv + per-channel affine + ReLU kernel (csrc/conv3x3_wgmma.cu)
 and its wrappers.
 
 Counterpart of the reference package's ``ops/pallas_conv.py``:
 ``conv3x3_bn_relu`` (kernel ``_kernel``) and ``conv3x3_bn_relu_tiled``
 (``_tiled_kernel``); ``ops/cuda_conv_flat.py`` holds the counterparts of
 ``ops/pallas_conv_flat.py``. The four TPU kernels are four layouts of one
-function, and on Hopper they are one kernel: an implicit GEMM (M = output
-pixels, N = output channels, K = 9·C) on ``mma.sync`` with bf16 operands
-and float32 accumulation, whose epilogue applies ``acc·scale + bias`` in
-float32, then the optional ReLU, and rounds once to the output dtype.
+function, and on Hopper it is one kernel: an implicit GEMM (M = output
+pixels, N = output channels, K = 9·C) on ``wgmma`` fed by a ring of TMA
+loads, warp-specialised and persistent, with bf16 operands and float32
+accumulation, whose epilogue applies ``acc·scale + bias`` in float32, then
+the optional ReLU, and rounds once to the output dtype.
 
 [B, H, W, C] NHWC bf16 × [3, 3, C, F] HWIO → [B, H/s, W/s, F], SAME
-padding (one zero row and column on each side), stride 1 or 2. The kernel
-zero-fills taps outside the image as it loads them, so no padded copy of the
-input is written. Knobs of the TPU entries:
+padding (one zero row and column on each side), stride 1 or 2. The TMA
+zero-fills taps outside the image and channels or filters past C or F as it
+loads them, so no padded copy of the input is written, and the epilogue
+stores only pixels and channels that exist. ``tile_plan`` picks the tiles.
+Knobs of the TPU entries:
 
-- ``tile_h`` (``conv3x3_bn_relu_tiled``) is the kernel's output-row tile:
-  each block computes 128 output pixels inside one tile of ``tile_h`` rows
-  of one image. The other entries use one tile per image.
+- ``tile_h`` (``conv3x3_bn_relu_tiled``) is validated as in the reference
+  (it must divide H) and selects nothing: the kernel picks its own pixel
+  rectangles.
 - ``k_pack`` is accepted and has no effect: it pairs taps to fill the TPU
-  matrix unit's 128-deep contraction, and ``mma.sync``'s depth of 16 has no
-  such need.
+  matrix unit's 128-deep contraction, which Hopper's 16-deep MMA steps do
+  not need.
 - The TPU entries' ``interpret`` flag has no counterpart: a CPU tensor runs
   the plain version.
 
 Every entry checks its inputs the same way on every device: x is bf16 and
-contiguous NHWC with C % 8 == 0 (16-byte loads) and F % 8 == 0, w is
-[3, 3, C, F], H and W divide by the stride. Then a CPU tensor runs the plain
-version (``conv3x3_bn_relu_plain``) and a CUDA tensor launches the kernel or
-raises; any other device raises. There is no fallback.
+contiguous NHWC with C % 8 == 0 (16-byte rows for the TMA) and F % 8 == 0,
+w is [3, 3, C, F], H and W divide by the stride. Then a CPU tensor runs the
+plain version (``conv3x3_bn_relu_plain``) and a CUDA tensor launches the
+kernel or raises; any other device raises. There is no fallback to the
+plain version.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ import torch.nn.functional as F
 
 from synthetic_audio_detection_tpu_torch.ops import build
 
-SOURCE = "synthetic_audio_detection_tpu_torch/csrc/conv3x3_bn_relu.cu"
+LIBRARY = "conv3x3_wgmma"
+SOURCE = f"synthetic_audio_detection_tpu_torch/csrc/{LIBRARY}.cu"
 REPLACES = {
     "K3": "synthetic_audio_detection_tpu/ops/pallas_conv.py:33",
     "K4": "synthetic_audio_detection_tpu/ops/pallas_conv.py:74",
@@ -84,7 +89,8 @@ def _affine(v: Optional[torch.Tensor], fill: float, n: int, device) -> torch.Ten
         return torch.full((n,), fill, dtype=torch.float32, device=device)
     if tuple(v.shape) != (n,):
         raise ValueError(f"scale and bias must be [{n}], got {tuple(v.shape)}")
-    return v.to(device=device, dtype=torch.float32).contiguous()
+    v = v.to(device=device, dtype=torch.float32).contiguous()
+    return v if v.data_ptr() % 8 == 0 else v.clone()  # the kernel loads float2
 
 
 def conv3x3_bn_relu_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
@@ -108,6 +114,26 @@ def conv3x3_bn_relu_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return y.to(out_dtype).permute(0, 2, 3, 1).contiguous()
 
 
+def tile_plan(F: int, Ho: int, Wo: int, stride: int) -> Tuple[int, int, int]:
+    """The kernel's tiles for F output channels and an Ho × Wo output at
+    ``stride`` → (bn, th, tw): N tiles of bn channels (256 where F allows,
+    else 128, else 64; a ragged last tile is masked), and M tiles of th × tw
+    output pixels of one image, th·tw = bm (128 at bn 256, so that a
+    consumer holds 128 accumulators a thread, else 256). tw is the power of
+    two that covers Wo, as far as bm and the TMA box's 256 input elements a
+    side allow; rows or columns past the image are computed and not stored."""
+    bn = 256 if F % 256 == 0 else 128 if F % 128 == 0 else 64
+    bm = 128 if bn == 256 else 256
+    tw = 1
+    while tw < Wo and tw < bm and 2 * tw * stride <= 256:
+        tw *= 2
+    th = bm // tw
+    while th * stride > 256:
+        th //= 2
+        tw *= 2
+    return bn, th, tw
+
+
 class Conv3x3Kernel:
     """Launches the kernel and counts its launches (``launches``, one per
     call that runs the kernel; the plain version on the CPU does not
@@ -122,12 +148,12 @@ class Conv3x3Kernel:
     def load(self) -> ctypes.CDLL:
         """Build (at first use) and bind the library."""
         if self._lib is None:
-            lib = build.load(self.name)
-            lib.sad_conv3x3_bn_relu.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-            lib.sad_conv3x3_bn_relu.restype = ctypes.c_int
-            lib.sad_cuda_error_string.argtypes = [ctypes.c_int]
-            lib.sad_cuda_error_string.restype = ctypes.c_char_p
+            lib = build.load(LIBRARY)
+            lib.sad_conv3x3_wgmma.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            lib.sad_conv3x3_wgmma.restype = ctypes.c_int
+            lib.sad_conv_error_string.argtypes = [ctypes.c_int]
+            lib.sad_conv_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
@@ -136,7 +162,7 @@ class Conv3x3Kernel:
                  tile_h: int) -> torch.Tensor:
         """x [B, H, W, C] bf16 NHWC, w_packed [F, 3, 3, C] bf16, scale and
         bias [F] float32, all contiguous on one CUDA device (the entries
-        check the rest)."""
+        check the rest). ``tile_h`` is validated and selects nothing."""
         if x.device.type != "cuda":
             raise ValueError(f"the kernel takes CUDA tensors, got {x.device}")
         B, H, W, C = x.shape
@@ -151,6 +177,8 @@ class Conv3x3Kernel:
             raise ValueError("all operands must lie on x's device")
         if x.data_ptr() % 16 or w_packed.data_ptr() % 16:
             raise ValueError("x and w must start on a 16-byte boundary")
+        if scale.data_ptr() % 8 or bias.data_ptr() % 8:
+            raise ValueError("scale and bias must start on an 8-byte boundary")
         if out_dtype not in OUT_DTYPES:
             raise ValueError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
         Ho, Wo = H // stride, W // stride
@@ -159,15 +187,13 @@ class Conv3x3Kernel:
         out = torch.empty((B, Ho, Wo, Fo), dtype=out_dtype, device=x.device)
         lib = self.load()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.sad_conv3x3_bn_relu(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w_packed.data_ptr()),
-            ctypes.c_void_p(scale.data_ptr()), ctypes.c_void_p(bias.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            B, H, W, C, Fo, stride, tile_h, int(relu), int(out_dtype == torch.float32),
-            ctypes.c_void_p(stream))
+        rc = lib.sad_conv3x3_wgmma(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (x, w_packed, scale, bias, out)),
+            B, H, W, C, Fo, stride, int(relu), int(out_dtype == torch.float32),
+            *tile_plan(Fo, Ho, Wo, stride), ctypes.c_void_p(stream))
         if rc != 0:
-            msg = lib.sad_cuda_error_string(rc).decode()
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {rc} ({msg})")
+            msg = lib.sad_conv_error_string(rc).decode()
+            raise RuntimeError(f"{LIBRARY} launch failed: CUDA error {rc} ({msg})")
         self.launches += 1
         return out
 
@@ -219,8 +245,8 @@ def conv3x3_bn_relu_tiled(
     out_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Stride-1 ``conv3x3_bn_relu`` with ``tile_h`` output rows per tile;
-    H must divide by ``tile_h``, as in the reference. ``k_pack`` has no
-    effect."""
+    H must divide by ``tile_h``, as in the reference; it selects nothing on
+    the kernel. ``k_pack`` has no effect."""
     if tile_h <= 0 or (x.ndim == 4 and x.shape[1] % tile_h):
         raise ValueError(f"H={x.shape[1]} must divide by tile_h={tile_h}")
     return run(x, w, scale, bias, 1, relu, out_dtype, tile_h)

@@ -7,9 +7,10 @@ zero-padded image flattened to rows, each tap a contiguous row offset, with
 the padding columns computed as junk and sliced off afterwards; the static
 variant unrolls the tile loop to get past a TPU compiler limit. Both are the
 function of ``ops/cuda_conv.py``, and both run its kernel
-(csrc/conv3x3_bn_relu.cu), which needs neither the flattened copy nor the
+(csrc/conv3x3_wgmma.cu), which needs neither the flattened copy nor the
 junk columns. ``tile_rows`` is validated as the reference validates it
-(it must divide H·(W+2)) and has no other effect; ``k_pack`` has none.
+(it must divide H·(W+2)) and selects nothing on the kernel; ``k_pack`` has
+no effect.
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ from synthetic_audio_detection_tpu_torch.ensemble import multihead as TE
 from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
 from synthetic_audio_detection_tpu_torch.models.fast_resnet import FastResNet, KernelConv
 from synthetic_audio_detection_tpu_torch.models.resnet import create_resnet
-from synthetic_audio_detection_tpu_torch.ops import cuda_conv, cuda_conv_flat
+from synthetic_audio_detection_tpu_torch.ops import build, cuda_conv, cuda_conv_flat
 
 BF16_ULP = 2.0 ** -7  # relative spacing of bf16 at the bottom of a binade
 NAMES = ["SynA", "SynB", "Real"]
@@ -108,6 +108,46 @@ def test_conv3x3_defaults_are_identity_affine():
     ones, zeros = torch.ones(8), torch.zeros(8)
     assert torch.equal(cuda_conv.conv3x3_bn_relu(xt, wt),
                        cuda_conv.conv3x3_bn_relu(xt, wt, ones, zeros))
+
+
+# the seven 3x3 conv shapes of ResNet-18 at 512² input as (F, output side,
+# stride), and narrower shapes of the contract as (F, Ho, Wo, stride)
+RESNET18_CONVS = [(64, 128, 1), (128, 64, 2), (128, 64, 1), (256, 32, 2), (256, 32, 1),
+                  (512, 16, 2), (512, 16, 1)]
+NARROW_CONVS = [(16, 16, 16, 1), (8, 16, 14, 1), (8, 8, 7, 2), (72, 16, 16, 1),
+                (128, 4, 300, 1), (64, 1, 1, 2)]
+
+
+def _plan(F, Ho, Wo, stride):
+    """tile_plan's tiles, checked against what the kernel accepts."""
+    bn, th, tw = cuda_conv.tile_plan(F, Ho, Wo, stride)
+    assert bn in (64, 128, 256) and th * tw == (128 if bn == 256 else 256)
+    assert tw & (tw - 1) == 0 and th * stride <= 256 and tw * stride <= 256  # one TMA box
+    return bn, th, tw
+
+
+@pytest.mark.parametrize("F,side,stride", RESNET18_CONVS)
+def test_tile_plan_tiles_resnet18_convs_exactly(F, side, stride):
+    """At ResNet-18's shapes the tiles divide the output: no pixel or output
+    channel is computed only to be masked."""
+    bn, th, tw = _plan(F, side, side, stride)
+    assert F % bn == 0 and side % th == 0 and side % tw == 0
+
+
+@pytest.mark.parametrize("F,Ho,Wo,stride", NARROW_CONVS)
+def test_tile_plan_covers_narrow_convs(F, Ho, Wo, stride):
+    """Narrower shapes get ragged tiles that the kernel masks: the N tile is
+    ragged only at its narrowest (64), and a pixel rectangle spans a whole
+    output row wherever the rectangle and the TMA box allow."""
+    bn, th, tw = _plan(F, Ho, Wo, stride)
+    assert F % bn == 0 or bn == 64
+    assert tw >= min(Wo, th * tw, 256 // stride)
+
+
+def test_kernel_source_is_in_the_checkout():
+    """The wrapper builds one source, which the checkout holds."""
+    assert cuda_conv.SOURCE.endswith(f"csrc/{cuda_conv.LIBRARY}.cu")
+    assert (build.CSRC_DIR / f"{cuda_conv.LIBRARY}.cu").exists()
 
 
 def _bad_calls():

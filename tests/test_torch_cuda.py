@@ -116,19 +116,31 @@ def test_strip_mel_kernel_is_deterministic_and_raises():
         cuda_melspec_strip.fused_log_mel(_waves(1, 32_000 * 9), CFG)  # 563 frames > 256
 
 
-def _conv_inputs(B, H, W, C, F, seed=7):
+def _conv_inputs(B, H, W, C, F, seed=7, w_std=0.1):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy((rng.standard_normal((B, H, W, C)) * 0.5).astype(np.float32))
-    w = torch.from_numpy((rng.standard_normal((3, 3, C, F)) * 0.1).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, C, F)) * w_std).astype(np.float32))
     scale = torch.from_numpy(rng.uniform(0.5, 1.5, F).astype(np.float32))
     bias = torch.from_numpy((rng.standard_normal(F) * 0.1).astype(np.float32))
     return x.to(torch.bfloat16).cuda(), w.cuda(), scale.cuda(), bias.cuda()
 
 
-# the reference tests' C=8 shapes, a ragged pixel tile (16·14 = 224 output
-# pixels) and a ragged channel tile (F = 16 of the kernel's 64), and
-# ResNet-18's layer-1 shape at batch 32
-CONV_SHAPES = [(2, 16, 16, 8, 16), (2, 16, 14, 8, 8), (1, 16, 16, 64, 64), (32, 128, 128, 64, 64)]
+# the reference tests' C=8 shapes; ragged tiles that the kernel masks: a
+# pixel rectangle past the image (16·14 of 256 pixels; rows 600 or 300 wide
+# in rectangles 256 or 128 wide), output channels past F (F = 8, 16 or 24 of a 64-wide N
+# tile; F = 72, two tiles) and channels past C (C = 72: a 64-channel chunk
+# and an 8-channel one); and ResNet-18's layer-1 shape at batch 32
+CONV_SHAPES = [(2, 16, 16, 8, 16), (2, 16, 14, 8, 8), (2, 16, 16, 72, 72), (1, 4, 600, 16, 24),
+               (1, 16, 16, 64, 64), (32, 128, 128, 64, 64)]
+
+
+def _launch(fn):
+    """fn()'s output, checking that it launched the kernel once."""
+    before = cuda_conv.KERNEL.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert cuda_conv.KERNEL.launches == before + 1
+    return out
 
 
 @pytest.mark.cuda
@@ -139,16 +151,53 @@ CONV_SHAPES = [(2, 16, 16, 8, 16), (2, 16, 14, 8, 8), (1, 16, 16, 64, 64), (32, 
 def test_conv_kernel_matches_plain_version(shape, stride, relu, out_dtype):
     _cuda_or_skip()
     x, w, scale, bias = _conv_inputs(*shape)
-    before = cuda_conv.KERNEL.launches
-    got = cuda_conv.conv3x3_bn_relu(x, w, scale, bias, stride=stride, relu=relu,
-                                    out_dtype=out_dtype)
+    got = _launch(lambda: cuda_conv.conv3x3_bn_relu(x, w, scale, bias, stride=stride, relu=relu,
+                                                    out_dtype=out_dtype))
     ref = cuda_conv.conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu, out_dtype)
-    torch.cuda.synchronize()
-    assert cuda_conv.KERNEL.launches == before + 1
     B, H, W, _, F = shape
     assert got.shape == (B, H // stride, W // stride, F) and got.dtype == out_dtype
     assert got.is_contiguous()
     torch.testing.assert_close(got, ref, **CONV_TOL[out_dtype])
+
+
+# every 3x3 conv class of ResNet-18 (C → F, stride) at batch 2-4 and 32², or
+# 16² for layer 4, and a width that is no divisor of 128 (48: the kernel's
+# 64-wide pixel rectangles are ragged and masked), as (B, H, W, C, F, stride)
+RESNET18_SHAPES = [
+    (2, 32, 32, 64, 64, 1), (2, 32, 32, 64, 128, 2), (3, 32, 32, 128, 128, 1),
+    (2, 32, 32, 128, 256, 2), (2, 32, 32, 256, 256, 1), (2, 32, 32, 256, 512, 2),
+    (4, 16, 16, 512, 512, 1), (2, 40, 48, 64, 128, 1), (2, 40, 48, 256, 256, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RESNET18_SHAPES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_conv_kernel_matches_plain_version_at_resnet18_shapes(shape, out_dtype):
+    """The kernel at every ResNet-18 3x3 conv class, ReLU on and off,
+    within one bf16 ulp of the plain version (float32 out: within the
+    float32 summation order), and the same bits twice. He-scaled weights
+    keep the outputs O(1) at every depth, as in the network. The two
+    float32 sums of 9·C exact products differ by rounding in their order,
+    which grows like the square root of their length: float32 out is held
+    to 1e-5 absolute at ResNet-18's shallowest K = 576 (CONV_TOL) and
+    1e-5·√(9·C / 576) at deeper K."""
+    _cuda_or_skip()
+    B, H, W, C, F, stride = shape
+    x, w, scale, bias = _conv_inputs(B, H, W, C, F, seed=10, w_std=(2.0 / (9 * C)) ** 0.5)
+    tol = dict(CONV_TOL[out_dtype])
+    if out_dtype == torch.float32:
+        tol["atol"] = 1e-5 * (9 * C / 576) ** 0.5
+    for relu in (True, False):
+        def call():
+            return cuda_conv.conv3x3_bn_relu(x, w, scale, bias, stride=stride, relu=relu,
+                                             out_dtype=out_dtype)
+
+        got = _launch(call)
+        assert got.shape == (B, H // stride, W // stride, F) and got.dtype == out_dtype
+        ref = cuda_conv.conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu, out_dtype)
+        torch.testing.assert_close(got, ref, **tol)
+        assert torch.equal(got, call())
 
 
 @pytest.mark.cuda
@@ -156,30 +205,31 @@ def test_conv_kernel_matches_plain_version(shape, stride, relu, out_dtype):
 @pytest.mark.parametrize("shape", [(2, 16, 16, 8, 16), (8, 128, 128, 64, 64)])
 def test_conv_entries_launch_the_kernel(entry, shape):
     """The stride-1 entries of the other three TPU layouts run the same
-    kernel (tiled: tile_h output rows per tile)."""
+    kernel."""
     _cuda_or_skip()
     x, w, scale, bias = _conv_inputs(*shape, seed=8)
     fn = {"tiled": lambda *a: cuda_conv.conv3x3_bn_relu_tiled(*a, tile_h=8),
           "flat": cuda_conv_flat.conv3x3_bn_relu_flat,
           "flat_static": cuda_conv_flat.conv3x3_bn_relu_flat_static}[entry]
-    before = cuda_conv.KERNEL.launches
-    got = fn(x, w, scale, bias)
+    got = _launch(lambda: fn(x, w, scale, bias))
     ref = cuda_conv.conv3x3_bn_relu_plain(x, w, scale, bias)
-    torch.cuda.synchronize()
-    assert cuda_conv.KERNEL.launches == before + 1
     torch.testing.assert_close(got, ref, **CONV_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
 def test_conv_kernel_is_deterministic_and_tile_h_free():
-    """Two calls give identical bits, and the row tile changes which block
-    computes a pixel but not its sum order."""
+    """Two calls give identical bits, and tile_h, which the kernel checks
+    and does not use (it picks its own pixel rectangles), changes no bit:
+    at a shape whose tiles divide the output and at one whose tiles are
+    ragged in pixels, output channels and input channels."""
     _cuda_or_skip()
-    x, w, scale, bias = _conv_inputs(4, 64, 64, 64, 128, seed=9)
-    a = cuda_conv.conv3x3_bn_relu(x, w, scale, bias)
-    assert torch.equal(a, cuda_conv.conv3x3_bn_relu(x, w, scale, bias))
-    for tile_h in (1, 8, 32):
-        assert torch.equal(a, cuda_conv.conv3x3_bn_relu_tiled(x, w, scale, bias, tile_h=tile_h))
+    for shape in ((4, 64, 64, 64, 128), (2, 16, 14, 72, 24)):
+        x, w, scale, bias = _conv_inputs(*shape, seed=9)
+        a = cuda_conv.conv3x3_bn_relu(x, w, scale, bias)
+        assert torch.equal(a, cuda_conv.conv3x3_bn_relu(x, w, scale, bias))
+        for tile_h in (1, 8, 16):
+            assert torch.equal(a, cuda_conv.conv3x3_bn_relu_tiled(x, w, scale, bias,
+                                                                   tile_h=tile_h))
 
 
 @pytest.mark.cuda

@@ -10,6 +10,8 @@ from synthetic_audio_detection_tpu_torch.tools import profile_serving as P
 
 @pytest.mark.parametrize("name,part", [
     ("void (anonymous namespace)::conv3x3_kernel<false>(...)", "conv kernel (K3)"),
+    ("void (anonymous namespace)::conv3x3_wgmma_kernel<2, 64, false>(CUtensorMap_st, "
+     "CUtensorMap_st, (anonymous namespace)::Params)", "conv kernel (K3)"),
     ("block_dft_kernel", "K1 log-mel kernel"),
     ("void (anonymous namespace)::db_standardize_kernel<__nv_bfloat16>(...)", "K1 log-mel kernel"),
     ("(anonymous namespace)::strip_dft_power_kernel(...)", "K2 log-mel kernel"),
