@@ -21,9 +21,15 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
              reference's bound, and against K1;
            - the 3x3 conv + BN + ReLU kernel (K3-K6, wgmma fed by a TMA
              ring) at the seven 3x3 conv shapes of ResNet-18 at 512² input
-             and batch 128, bf16 out with ReLU on and off and float32 out,
-             with its TFLOP/s per shape; then its other three entries
-             (tiled, flat, flat_static) at the layer-1 shape.
+             and batch 128 and at its three 1x1 downsamples (the 1x1 weight
+             at the centre tap of a zero 3x3 weight, against the 1x1 conv's
+             plain composition), bf16 out with ReLU on and off and float32
+             out, with its TFLOP/s per shape; then its other three entries
+             (tiled, flat, flat_static) at the layer-1 shape; then the 7x7
+             stem on one plane and on three channels against the BN-folded
+             bf16 cuDNN stem;
+           - P1-P3, the helper probes' kernel, at the Pallas shapes on
+             seeded numpy bf16 inputs.
 4. front   the mel-only front end as the reference's benchmark drives it:
            fused_log_mel (K2) → finalize_features → bf16 on 128 seeded 4-s
            windows at out_size 512, 256 and 0 (native), counts zeroed
@@ -31,31 +37,39 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            Checks shapes, finite values and agreement with the plain
            composition; then the front end's windows per second with K2,
            with K1 in its place, and with K1 and lowp_tail, in turns.
-5. main    writes two merged ResNet-18 ensembles (3 heads each, seeded
+5. probes  tools/helper_bisect.main() on the card, counts zeroed before and
+           read after: the three exact sums, three launches of the probes'
+           kernel (one per probe: each entry launches it or raises) and no
+           other kernel.
+6. main    writes two merged ResNet-18 ensembles (3 heads each, seeded
            random weights, BN statistics estimated on log-mel windows of a
            seeded clip and perturbed; one shared backbone, one dense)
            and two 32 kHz WAVs (10 min = 150 windows, so the 128 bucket runs
            twice; 20 s = 5 windows, the 8 bucket), then runs the port's CLI
            main() with --bf16 at --input-size 512 for each checkpoint and
-           clip, and once in float32. Every kernel's launch count is zeroed
-           before and read after. Checks: the JSON parses and covers every
-           window, K1 launched during the bf16 runs and not during the
-           float32 run, the conv kernel in none of them (the CLI keeps the
-           cuDNN route), bf16 and float32 labels agree on every window
-           whose float32 sigmoids all lie more than 0.05 from the threshold
-           (and whose leading synthetic head, for a synthetic verdict, leads
-           the runner-up by more than 0.05), the CUDA float32 logits
-           match the CPU float32 logits on a small input, and K2 never ran.
-6. conv    the conv path: InferencePipeline(compute_dtype=bfloat16,
-           conv3x3_max_channels=512) on the shared checkpoint over the 150
-           windows, counts zeroed before and read after: 16 conv launches
-           per 128-window batch (32) and one K1 launch per batch, none of
-           K2, none of the conv kernel in float32 with the same knob. Its logits
-           against the cuDNN route of the same pipeline, and its labels on
-           every clear window against the cuDNN route and float32. Then
-           the steady-state windows per second of both bf16 routes and of
+           clip, and once in float32, every kernel's launch count zeroed
+           before each run and read after it. Checks: the JSON parses and
+           covers every window, K1 launched in every bf16 run and not in the
+           float32 run, the conv kernel 19 times per batch on the shared
+           checkpoint (38 for the 150 windows, 19 for the 5) and never on
+           the dense one or in float32, bf16 and float32 labels agree on
+           every window whose float32 sigmoids all lie more than 0.05 from
+           the threshold (and whose leading synthetic head, for a synthetic
+           verdict, leads the runner-up by more than 0.05), the CUDA float32
+           logits match the CPU float32 logits on a small input, and K2
+           never ran.
+7. conv    the conv path: the default bf16 InferencePipeline
+           (conv3x3_max_channels=512) on the shared checkpoint over the 150
+           windows, counts zeroed before and read after: 19 conv launches
+           per 128-window batch (38) and one K1 launch per batch, none of
+           K2; none of the conv kernel in float32. Its logits against the
+           knob-0 route of the same pipeline (every conv the plain
+           composition, the same numerics) within TOL_ROUTE at most and
+           TOL_ROUTE_MEAN on average, and both
+           routes' labels on every clear window against float32. Then the
+           steady-state windows per second of both bf16 routes and of
            float32, in turns, at batch 128.
-7. report  one JSON line of kernels, the nvidia-smi line, and last
+8. report  one JSON line of kernels, the nvidia-smi line, and last
            {"ok": true, "device": {...}}.
 """
 
@@ -84,14 +98,20 @@ TOL_DB = 1e-2   # dB plane (standardize=False)
 # product exactly in float32 and sum in float32 in different orders, then
 # apply the same float32 affine and round once, so the bf16 outputs differ
 # by at most one bf16 ulp (relative 2^-7) where the two sums straddle a
-# rounding boundary; 1e-5 absolute covers the float32 sums' order near 0
+# rounding boundary; near 0 (where the affine cancels the sum) the sums'
+# order shows, which grows like the square root of their length: 1e-5
+# absolute at K = 576 products (layer 1), 1e-5·√(K / 576) deeper, as the
+# GPU tests hold it (tests/test_torch_cuda.py)
 CONV_RTOL, CONV_ATOL = 2.0 ** -7, 1e-5
-# kernel route vs cuDNN route of the bf16 pipeline: the same function
-# rounded to bf16 at different places (folded bf16 weights and bias against
-# bf16 weights and a float32 affine); the whole bf16 backbone moved logits
-# by up to 0.249 against float32 (PERF.md), so two bf16 roundings may
-# differ by up to twice that
-TOL_ROUTE = 0.5
+# the default route (conv kernel) vs the knob-0 route (every conv the
+# plain composition) of the bf16 pipeline: the same operands and function,
+# so they differ only where a conv's two float32 summation orders straddle
+# a bf16 rounding boundary; the flipped ulp then propagates through the
+# following layers and grows as bf16 rounding itself does, whose distance
+# from float32 on these logits is about 0.5 at most and 0.08 on average
+# (PERF.md). The bounds: 0.3 at most (about ten bf16 ulps of the largest
+# logits, O(5)) and 0.05 on average
+TOL_ROUTE, TOL_ROUTE_MEAN = 0.3, 0.05
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -101,18 +121,23 @@ PEAK_F32 = 67e12
 HBM_BYTES_S = 3.35e12
 
 BATCH = 128
-# the sixteen 3x3 convs of ResNet-18 at 512² input: (where, H, W, C, F,
-# stride, convs per batch); layer1 runs at 128² after the stem and max-pool
+# the nineteen conv-kernel launches of one ResNet-18 batch at 512² input:
+# (where, H, W, C, F, stride, kernel side, convs per batch); layer1 runs at
+# 128² after the stem and max-pool; a 1x1 downsample runs as a 3x3 with its
+# weight at the centre tap
 CONV_SHAPES = [
-    ("layer1", 128, 128, 64, 64, 1, 4),
-    ("layer2.0.conv1", 128, 128, 64, 128, 2, 1),
-    ("layer2", 64, 64, 128, 128, 1, 3),
-    ("layer3.0.conv1", 64, 64, 128, 256, 2, 1),
-    ("layer3", 32, 32, 256, 256, 1, 3),
-    ("layer4.0.conv1", 32, 32, 256, 512, 2, 1),
-    ("layer4", 16, 16, 512, 512, 1, 3),
+    ("layer1", 128, 128, 64, 64, 1, 3, 4),
+    ("layer2.0.conv1", 128, 128, 64, 128, 2, 3, 1),
+    ("layer2.0.downsample", 128, 128, 64, 128, 2, 1, 1),
+    ("layer2", 64, 64, 128, 128, 1, 3, 3),
+    ("layer3.0.conv1", 64, 64, 128, 256, 2, 3, 1),
+    ("layer3.0.downsample", 64, 64, 128, 256, 2, 1, 1),
+    ("layer3", 32, 32, 256, 256, 1, 3, 3),
+    ("layer4.0.conv1", 32, 32, 256, 512, 2, 3, 1),
+    ("layer4.0.downsample", 32, 32, 256, 512, 2, 1, 1),
+    ("layer4", 16, 16, 512, 512, 1, 3, 3),
 ]
-CONVS_PER_BATCH = sum(s[-1] for s in CONV_SHAPES)
+CONV_LAUNCHES_PER_BATCH = sum(s[-1] for s in CONV_SHAPES)
 
 
 def check(ok: bool, what: str) -> None:
@@ -463,108 +488,278 @@ def drive_front_end(zero_counts, counts):
     return launches, wps
 
 
-def conv_inputs(B, H, W, C, F, seed):
-    """x bf16 NHWC, the packed weight's HWIO view, scale and bias, on the
-    card from a seeded generator; He-scaled weights keep outputs O(1)."""
+def conv_inputs(B, H, W, C, Fo, k, seed):
+    """x bf16 NHWC, the conv's own [Fo, k, k, C] weight in float32, the packed
+    [F, 3, 3, C] bf16 weight's HWIO view as FastResNet passes it (a 1x1
+    weight at the centre tap of zeros), scale and bias, on the card from a
+    seeded generator; He-scaled weights keep outputs O(1)."""
     import torch
+    import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (0.5 * torch.randn(B, H, W, C, generator=g, device="cuda")).to(torch.bfloat16)
-    w = torch.randn(F, 3, 3, C, generator=g, device="cuda") * (2.0 / (9 * C)) ** 0.5
-    scale = 0.5 + torch.rand(F, generator=g, device="cuda")
-    bias = 0.1 * torch.randn(F, generator=g, device="cuda")
-    # [F, 3, 3, C] bf16 as FastResNet packs it, passed as its [3, 3, C, F] view
-    return x, w.to(torch.bfloat16).contiguous().permute(1, 2, 3, 0), scale, bias
+    w = torch.randn(Fo, k, k, C, generator=g, device="cuda") * (2.0 / (k * k * C)) ** 0.5
+    scale = 0.5 + torch.rand(Fo, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(Fo, generator=g, device="cuda")
+    packed = w.to(torch.bfloat16)
+    if k == 1:
+        packed = F.pad(packed, (0, 0, 1, 1, 1, 1))
+    return x, w, packed.contiguous().permute(1, 2, 3, 0), scale, bias
 
 
-def conv_err(got, ref):
-    """(max |got − ref|, whether every element is within the tolerance)."""
+def conv_err(got, ref, k_terms: int):
+    """(max |got − ref|, whether every element is within the tolerance for
+    sums of ``k_terms`` products)."""
     d = (got.float() - ref.float()).abs()
-    excess = d - (CONV_RTOL * ref.float().abs() + CONV_ATOL)
+    atol = CONV_ATOL * max(1.0, (k_terms / 576) ** 0.5)
+    excess = d - (CONV_RTOL * ref.float().abs() + atol)
     return float(d.max()), float(excess.max()) <= 0.0
 
 
 def check_conv():
-    """The conv kernel against its plain version at ResNet-18's 3x3 shapes
-    at 512² and batch 128 (bf16 out with ReLU on and off, float32 out), and
-    its other entries at the layer-1 shape; → (per-shape rows, per-entry
-    rows, per-batch totals)."""
+    """The conv kernel against its plain version at ResNet-18's conv-kernel
+    shapes at 512² and batch 128 (bf16 out with ReLU on and off, float32
+    out), and its other entries at the layer-1 shape; → (per-shape rows,
+    per-entry rows, per-batch totals)."""
     import torch
     import torch.nn.functional as F
 
     from synthetic_audio_detection_tpu_torch.ops import cuda_conv, cuda_conv_flat
 
     rows, entries = [], {}
-    for i, (where, H, W, C, Fo, stride, count) in enumerate(CONV_SHAPES):
-        x, w, scale, bias = conv_inputs(BATCH, H, W, C, Fo, seed=100 + i)
+    for i, (where, H, W, C, Fo, stride, k, count) in enumerate(CONV_SHAPES):
+        x, w, w_hwio, scale, bias = conv_inputs(BATCH, H, W, C, Fo, k, seed=100 + i)
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+
+        def plain(relu=True, out_dtype=torch.bfloat16):
+            # the conv's own plain composition: the knob-0 route's, and for
+            # a downsample the 1x1 conv itself, not the centre-tap 3x3
+            return cuda_conv.conv_bn_relu_plain(x_nchw, w_oihw, scale, bias, stride, k // 2, relu,
+                                                out_dtype=out_dtype).permute(0, 2, 3, 1)
+
         errs = []
         for relu, out_dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
                                 (True, torch.float32)):
-            got = cuda_conv.conv3x3_bn_relu(x, w, scale, bias, stride=stride, relu=relu,
+            got = cuda_conv.conv3x3_bn_relu(x, w_hwio, scale, bias, stride=stride, relu=relu,
                                             out_dtype=out_dtype)
-            ref = cuda_conv.conv3x3_bn_relu_plain(x, w, scale, bias, stride, relu, out_dtype)
+            ref = plain(relu, out_dtype)
             torch.cuda.synchronize()
             check(got.shape == ref.shape == (BATCH, H // stride, W // stride, Fo)
                   and got.dtype == out_dtype, f"conv {where} shape")
-            err, ok = conv_err(got, ref)
+            err, ok = conv_err(got, ref, k * k * C)
             check(ok, f"conv {where} relu={relu} {out_dtype} disagrees with its plain version "
                       f"({err})")
             errs.append(err)
-        # the port's cuDNN route for the same function: BN folded into the
-        # bf16 weight and bias, channels_last, then the ReLU
-        x_nchw = x.permute(0, 3, 1, 2)
-        w_fold = (w.float() * scale).permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        # one PyTorch call for the same function: cuDNN on BN folded into
+        # the bf16 weight and bias (the port's route before the reference's
+        # numerics), channels_last, then the ReLU of the 3x3 convs
+        relu = k == 3
+        w_fold = (w_oihw.float() * scale[:, None, None, None]).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         b_fold = bias.to(torch.bfloat16)
-        ms = median_ms(lambda: cuda_conv.conv3x3_bn_relu(x, w, scale, bias, stride=stride))
-        plain_ms = median_ms(lambda: cuda_conv.conv3x3_bn_relu_plain(x, w, scale, bias, stride))
-        library_ms = median_ms(lambda: torch.relu(F.conv2d(x_nchw, w_fold, b_fold, stride, 1)))
+
+        def library():
+            y = F.conv2d(x_nchw, w_fold, b_fold, stride, k // 2)
+            return torch.relu(y) if relu else y
+
+        ms = median_ms(lambda: cuda_conv.conv3x3_bn_relu(x, w_hwio, scale, bias, stride=stride,
+                                                         relu=relu))
+        plain_ms = median_ms(lambda: plain(relu))
+        library_ms = median_ms(library)
         Ho, Wo = H // stride, W // stride
-        flops = 2.0 * BATCH * Ho * Wo * Fo * 9 * C
-        nbytes = 2.0 * (x.numel() + w.numel() + BATCH * Ho * Wo * Fo) + 8.0 * Fo
+        flops = 2.0 * BATCH * Ho * Wo * Fo * k * k * C
+        # a 1x1 conv at stride 2 reads a quarter of the input's pixels
+        x_bytes = 2.0 * (x.numel() if k == 3 else BATCH * Ho * Wo * C)
+        nbytes = x_bytes + 2.0 * (w.numel() + BATCH * Ho * Wo * Fo) + 8.0 * Fo
         b_ms, b_by = bound([(flops, PEAK_BF16)], nbytes)
-        row = dict(where=where, x=[BATCH, H, W, C], F=Fo, stride=stride, per_batch=count,
-                   tiles=cuda_conv.tile_plan(Fo, Ho, Wo, stride), max_abs_err=max(errs),
-                   ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9, mb=nbytes / 1e6)
+        row = dict(where=where, x=[BATCH, H, W, C], F=Fo, stride=stride, kernel=k,
+                   per_batch=count, tiles=cuda_conv.tile_plan(Fo, Ho, Wo, stride),
+                   max_abs_err=max(errs), ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, gflop=flops / 1e9,
+                   mb=nbytes / 1e6)
         rows.append(row)
-        print(f"[kernels] conv {where:15s} [{BATCH},{H},{W},{C}]→{Fo} s{stride}: "
-              f"max|kernel-plain| {max(errs):.3g} (≤ 2^-7·|ref| + 1e-5; bf16 ReLU on/off, "
-              f"float32), kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), plain "
-              f"{plain_ms:.4f}, cuDNN {library_ms:.4f}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"[kernels] conv {where:19s} [{BATCH},{H},{W},{C}]→{Fo} {k}x{k} s{stride}: "
+              f"max|kernel-plain| {max(errs):.3g} (≤ 2^-7·|ref| + 1e-5·√(K/576); bf16 ReLU "
+              f"on/off, float32), kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s of the {k}x{k}'s "
+              f"products), plain {plain_ms:.4f}, cuDNN folded {library_ms:.4f}, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
 
         if where == "layer1":
             # the other three TPU layouts' entries, the same kernel
             calls = {
                 "K4": ("conv3x3_bn_relu_tiled(tile_h=32)",
-                       lambda: cuda_conv.conv3x3_bn_relu_tiled(x, w, scale, bias, tile_h=32)),
+                       lambda: cuda_conv.conv3x3_bn_relu_tiled(x, w_hwio, scale, bias, tile_h=32)),
                 "K5": ("conv3x3_bn_relu_flat",
-                       lambda: cuda_conv_flat.conv3x3_bn_relu_flat(x, w, scale, bias)),
+                       lambda: cuda_conv_flat.conv3x3_bn_relu_flat(x, w_hwio, scale, bias)),
                 "K6": ("conv3x3_bn_relu_flat_static",
-                       lambda: cuda_conv_flat.conv3x3_bn_relu_flat_static(x, w, scale, bias)),
+                       lambda: cuda_conv_flat.conv3x3_bn_relu_flat_static(x, w_hwio, scale,
+                                                                          bias)),
             }
-            ref = cuda_conv.conv3x3_bn_relu_plain(x, w, scale, bias)
+            ref = plain()
             for kid, (entry, fn) in calls.items():
-                err, ok = conv_err(fn(), ref)
+                err, ok = conv_err(fn(), ref, 9 * C)
                 check(ok, f"{entry} disagrees with the plain version ({err})")
                 e_ms = median_ms(fn)
                 entries[kid] = dict(row, entry=entry, max_abs_err=err, ms=e_ms,
                                     tflops=flops / e_ms / 1e9, per_batch=0)
                 print(f"[kernels] {kid} {entry} at layer1: max|kernel-plain| {err:.3g}, "
                       f"kernel {e_ms:.4f} ms", flush=True)
-        del x, w
+        del x, w, w_hwio, x_nchw, w_oihw
     torch.cuda.empty_cache()  # the layer-1 buffers go back before the pipelines run
     total = {k: sum(r[k] * r["per_batch"] for r in rows)
              for k in ("ms", "plain_ms", "library_ms", "bound_ms", "gflop", "mb")}
     # the batch's bound is the sum of its launches' bounds; what bounds it
     # is what its operations and its bytes would each take over the batch
     _, total["bound_by"] = bound([(total["gflop"] * 1e9, PEAK_BF16)], total["mb"] * 1e6)
-    print(f"[kernels] conv, the {CONVS_PER_BATCH} 3x3 convs of one 128-window batch: kernel "
-          f"{total['ms']:.3f} ms ({total['gflop'] / total['ms']:.1f} TFLOP/s), plain "
-          f"{total['plain_ms']:.3f}, cuDNN {total['library_ms']:.3f}, "
+    ds = [r for r in rows if r["kernel"] == 1]
+    total["downsample_ms"] = sum(r["ms"] for r in ds)
+    total["downsample_plain_ms"] = sum(r["plain_ms"] for r in ds)
+    total["downsample_library_ms"] = sum(r["library_ms"] for r in ds)
+    print(f"[kernels] conv, the {CONV_LAUNCHES_PER_BATCH} conv-kernel launches of one "
+          f"128-window batch: kernel {total['ms']:.3f} ms ({total['gflop'] / total['ms']:.1f} "
+          f"TFLOP/s), plain {total['plain_ms']:.3f}, cuDNN folded {total['library_ms']:.3f}, "
           f"bound {total['bound_ms']:.3f} ({total['bound_by']}; {total['gflop'] / 1e3:.3f} TFLOP, "
-          f"{total['mb'] / 1e3:.3f} GB)", flush=True)
+          f"{total['mb'] / 1e3:.3f} GB); the three 1x1 downsamples of them: kernel "
+          f"{total['downsample_ms']:.4f} ms, plain composition {total['downsample_plain_ms']:.4f},"
+          f" cuDNN folded {total['downsample_library_ms']:.4f}", flush=True)
     return rows, entries, total
+
+
+def check_stem():
+    """The 7x7 stem with its max-pool and ReLU (FastResNet.stem_pool) at 512²
+    and batch 128, on the serving input (one log-mel plane on three
+    channels as a broadcast view: the channel-summed weight on the plane)
+    and on three materialized channels (the plain composition: a float32
+    cuDNN conv of the bf16 values, TF32 off, the float32 affine, one
+    rounding), against BN folded into a bf16 cuDNN conv (the route they
+    replaced), in turns; → report."""
+    import torch
+    import torch.nn.functional as F
+
+    from synthetic_audio_detection_tpu_torch.models.fast_resnet import FastResNet
+    from synthetic_audio_detection_tpu_torch.models.resnet import create_resnet
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    net = create_resnet("resnet18").cuda().eval()
+    with torch.no_grad():
+        net.conv1.weight.copy_(torch.randn(64, 3, 7, 7, generator=g, device="cuda")
+                               * (2.0 / 147) ** 0.5)
+        net.bn1.weight.uniform_(0.5, 1.5, generator=g)
+        net.bn1.bias.normal_(0.0, 0.1, generator=g)
+    fast = FastResNet(net, torch.bfloat16, 512)
+    plane = torch.randn(BATCH, 1, 512, 512, generator=g, device="cuda").to(torch.bfloat16)
+    one_plane = plane.expand(BATCH, 3, 512, 512)
+    three = one_plane.contiguous(memory_format=torch.channels_last)
+    scale, bias = fast.stem.scale, fast.stem.bias
+    w_fold = (net.conv1.weight * scale[:, None, None, None]).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    b_fold = bias.to(torch.bfloat16)
+    routes = {
+        "one plane": lambda: fast.stem_pool(one_plane),
+        "three channels": lambda: fast.stem_pool(three),
+        "folded bf16": lambda: F.max_pool2d(torch.relu(F.conv2d(three, w_fold, b_fold, 2, 3)),
+                                            3, 2, 1),
+    }
+    out = {route: fn() for route, fn in routes.items()}
+    torch.cuda.synchronize()
+    check(all(o.shape == (BATCH, 64, 128, 128) and o.dtype == torch.bfloat16
+              and bool(torch.isfinite(o).all()) for o in out.values()), "stem output")
+    # the one-plane form sums the three bf16 weights first: the same
+    # function to the float32 summation order, so within one bf16 ulp
+    err, ok = conv_err(out["one plane"], out["three channels"], 147)
+    check(ok, f"the one-plane stem disagrees with the three-channel one ({err})")
+    ms = {route: [] for route in routes}
+    for route in list(routes) + list(routes)[::-1]:
+        ms[route].append(median_ms(routes[route], n=10))
+    print(f"[kernels] stem [{BATCH},3,512,512] 7x7 s2 + max-pool + ReLU: "
+          + ", ".join(f"{route} {' / '.join(f'{v:.4f}' for v in vals)} ms"
+                      for route, vals in ms.items())
+          + f" (in turns); max|one plane - three channels| {err:.3g}, max|one plane - folded| "
+          f"{float((out['one plane'].float() - out['folded bf16'].float()).abs().max()):.3g}",
+          flush=True)
+    return ms
+
+
+PROBE_SHAPES = {"P1": (64, 64), "P2": (64, 64), "P3": (9, 64, 64)}
+
+
+def check_probes():
+    """P1-P3 against their plain versions at the Pallas shapes on seeded
+    numpy bf16 inputs: one bf16 ulp, like the conv kernel (the same exact
+    products summed in another order); → rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from synthetic_audio_detection_tpu_torch.ops import cuda_probes
+
+    entries = {"P1": (cuda_probes.dyn_slice_dot, cuda_probes.dyn_slice_dot_plain),
+               "P2": (cuda_probes.lane_concat_dot, cuda_probes.lane_concat_dot_plain),
+               "P3": (cuda_probes.nine_tap_dot, cuda_probes.nine_tap_dot_plain)}
+    rows = {}
+    for i, (pid, (entry, plain)) in enumerate(entries.items()):
+        rng = np.random.default_rng(200 + i)
+        x = torch.from_numpy(rng.standard_normal(cuda_probes.X_SHAPE).astype(np.float32))
+        w = torch.from_numpy((rng.standard_normal(PROBE_SHAPES[pid]) / 8).astype(np.float32))
+        x, w = x.to(torch.bfloat16).cuda(), w.to(torch.bfloat16).cuda()
+        got, ref = entry(x, w), plain(x, w)
+        torch.cuda.synchronize()
+        check(got.shape == ref.shape and got.dtype == torch.bfloat16, f"{pid} shape")
+        taps = 1 if pid == "P1" else 2 if pid == "P2" else 9
+        err, ok = conv_err(got, ref, 64 * taps)
+        check(ok, f"{pid} disagrees with its plain version ({err})")
+        out_rows = got.shape[1]
+        row0 = cuda_probes.P1_ROW0 if pid == "P1" else 0
+        x_rows = x[:, row0:row0 + out_rows + taps - 1]
+        if pid == "P1":
+            def library():
+                return torch.matmul(x_rows, w)
+        else:
+            # [F, C, taps]: tap i's weight W_i[c, f] at [f, c, i]
+            wc = (w if pid == "P3" else w.expand(2, 64, 64)).permute(2, 1, 0).contiguous()
+
+            def library():
+                return F.conv1d(x_rows.transpose(1, 2), wc).transpose(1, 2)
+        check(library().shape == got.shape, f"{pid} library call shape")
+        ms = median_ms(lambda: entry(x, w))
+        plain_ms = median_ms(lambda: plain(x, w))
+        library_ms = median_ms(library)
+        flops = 2.0 * got.numel() * 64 * taps
+        nbytes = 2.0 * (x_rows.numel() + w.numel() + got.numel())
+        b_ms, b_by = bound([(flops, PEAK_BF16)], nbytes)
+        rows[pid] = dict(entry=entry.__name__, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, mflop=flops / 1e6,
+                         mb=nbytes / 1e6)
+        print(f"[kernels] {pid} {entry.__name__} {list(x.shape)} × {list(w.shape)} → "
+              f"{list(got.shape)}: max|kernel-plain| {err:.3g} (≤ 2^-7·|ref| + 1e-5), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f}, {'matmul' if pid == 'P1' else 'conv1d'} "
+              f"{library_ms:.4f}, bound {b_ms:.6f} ms ({b_by}; {flops / 1e6:.1f} MFLOP, "
+              f"{nbytes / 1e6:.3f} MB)", flush=True)
+    return rows
+
+
+def drive_probes(zero_counts, counts):
+    """Phase 5: tools/helper_bisect on the card; → launch counts."""
+    from synthetic_audio_detection_tpu_torch.ops import cuda_probes
+    from synthetic_audio_detection_tpu_torch.tools import helper_bisect
+
+    zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = helper_bisect.main([])
+    launches = counts()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[probes] {line}", flush=True)
+    print(f"[probes] launches: {launches}", flush=True)
+    check(rc == 0, f"helper_bisect exit code {rc}")
+    check(lines == [f"{label} : OK {float(total)}" for label, _, _, total in helper_bisect.PROBES],
+          "helper_bisect sums")
+    # each probe's entry launches the kernel on a CUDA tensor or raises, so
+    # three probes that print OK with three launches launched once each
+    check(launches[cuda_probes.KERNEL.name] == len(helper_bisect.PROBES),
+          "one probe-kernel launch per probe")
+    check(sum(launches.values()) == len(helper_bisect.PROBES), "only the probes' kernel ran")
+    return launches
 
 
 def windows_per_s(pipe, windows, runs: int = 5) -> float:
@@ -609,6 +804,7 @@ def main() -> int:
         cuda_conv,
         cuda_melspec,
         cuda_melspec_strip,
+        cuda_probes,
     )
     from synthetic_audio_detection_tpu_torch.utils.config import (
         AudioConfig,
@@ -617,7 +813,8 @@ def main() -> int:
     )
 
     k1, k2, conv = cuda_melspec.KERNEL, cuda_melspec_strip.KERNEL, cuda_conv.KERNEL
-    kernels = {k1.name: k1, k2.name: k2, conv.name: conv}
+    probes = cuda_probes.KERNEL
+    kernels = {k1.name: k1, k2.name: k2, conv.name: conv, probes.name: probes}
 
     def zero_counts():
         for k in kernels.values():
@@ -628,7 +825,7 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    sources = [k1.name, k2.name, cuda_conv.LIBRARY]
+    sources = [k1.name, k2.name, cuda_conv.LIBRARY, cuda_probes.LIBRARY]
     build.build(sources)
     print(f"[build] {len(sources)} source(s) in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in sources:
@@ -642,13 +839,18 @@ def main() -> int:
     k2_report = check_k2(k2, k1, SpectrogramConfig.inference())
     print(f"[kernels] K2 checks took {time.perf_counter() - t0:.1f} s", flush=True)
     conv_rows, conv_entries, conv_total = check_conv()
+    stem = check_stem()
+    probe_rows = check_probes()
 
     # 4. the mel-only front end
     t0 = time.perf_counter()
     front_launches, front_wps = drive_front_end(zero_counts, counts)
     print(f"[front] phase took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 5. main path through the CLI
+    # 5. the helper probes
+    probe_launches = drive_probes(zero_counts, counts)
+
+    # 6. main path through the CLI
     work = os.path.join(REPO, "synthetic_audio_detection_tpu_torch", "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
@@ -667,35 +869,38 @@ def main() -> int:
         for name, (seconds, _) in clips.items():
             wavio.write_wav(os.path.join(work, f"{name}.wav"), make_clip(seconds, seed=seconds), SR)
 
-        zero_counts()
-        results = {}
+        results, cli_launches = {}, {}
         for layout in paths:
             for name, (_, n_windows) in clips.items():
+                zero_counts()
                 res, sec = run_cli(["--merged-model", paths[layout],
                                     "--audio", os.path.join(work, f"{name}.wav"),
                                     "--output-json", os.path.join(work, f"{layout}_{name}.json"),
                                     "--bf16", "--input-size", "512", "--device", "cuda"])
+                cli_launches[(layout, name, "bf16")] = launches = counts()
                 check(len(res["segments"]) == n_windows, f"{layout}/{name}: window count")
                 check(all(s["label"] in NAMES for s in res["segments"]), "labels")
                 check(all(np.isfinite(v) for v in res["percentages"].values()), "percentages")
                 results[(layout, name, "bf16")] = res
                 print(f"[main] bf16 {layout:6s} {name:5s}: {sec:.3f} s per clip, "
-                      f"{n_windows / sec:.1f} windows/s (CLI wall, checkpoint load included)",
-                      flush=True)
-        bf16_launches = counts()
+                      f"{n_windows / sec:.1f} windows/s (CLI wall, checkpoint load included); "
+                      f"launches {launches}", flush=True)
+                batches = -(-n_windows // BATCH)
+                want = CONV_LAUNCHES_PER_BATCH * batches if layout == "shared" else 0
+                check(launches[conv.name] == want,
+                      f"{layout}/{name}: {launches[conv.name]} conv launches, not {want}")
+                check(launches[k1.name] == batches, f"{layout}/{name}: K1 launches")
+                check(launches[k2.name] == launches[probes.name] == 0,
+                      f"{layout}/{name}: K2 or the probes' kernel launched")
+        zero_counts()
         res32, sec = run_cli(["--merged-model", paths["shared"],
                               "--audio", os.path.join(work, "10min.wav"),
                               "--output-json", os.path.join(work, "f32.json"),
                               "--input-size", "512", "--device", "cuda"])
+        cli_launches[("shared", "10min", "float32")] = counts()
         print(f"[main] f32  shared 10min: {sec:.3f} s per clip, {150 / sec:.1f} windows/s "
-              "(CLI wall, checkpoint load included)", flush=True)
-        cli_launches = counts()
-        print(f"[main] launches in the bf16 runs {bf16_launches}, after the f32 run "
-              f"{cli_launches}")
-        check(bf16_launches[k1.name] > 0, "K1 was not launched by the main path")
-        check(cli_launches[k1.name] == bf16_launches[k1.name], "K1 launched by the f32 path")
-        check(cli_launches[conv.name] == 0, "the CLI's default route launched the conv kernel")
-        check(cli_launches[k2.name] == 0, "K2 launched by the CLI")
+              f"(CLI wall, checkpoint load included); launches {counts()}", flush=True)
+        check(sum(counts().values()) == 0, "a kernel launched in the float32 CLI run")
 
         # bf16 vs float32 verdicts away from the threshold
         audio = AudioConfig(overlap=0.0, silence_threshold=1e-3)
@@ -741,10 +946,10 @@ def main() -> int:
         print(f"[main] f32 logits, CUDA vs CPU, 4 windows: max diff {diff:.3g} (tol 1e-3)")
         check(diff <= 1e-3, "CUDA float32 logits disagree with the CPU path")
 
-        # 6. the conv path: the shared backbone's 3x3 convs through the kernel
+        # 7. the conv path: the default bf16 pipeline against its knob-0 route
         pk = InferencePipeline(ckpts["shared"], audio=audio, spec=spec512,
                                infer=InferenceConfig(), compute_dtype=torch.bfloat16,
-                               device="cuda", conv3x3_max_channels=512)
+                               device="cuda")
         check(pk.use_fast_backbone and pk.conv3x3_max_channels == 512, "conv route engaged")
         zero_counts()
         l_kernel = pk.logits_for_windows(windows)
@@ -752,50 +957,55 @@ def main() -> int:
         n_batches = -(-windows.shape[0] // BATCH)
         print(f"[conv] launches on the conv path, {windows.shape[0]} windows in {n_batches} "
               f"batches: {path_launches}", flush=True)
-        check(path_launches[conv.name] == CONVS_PER_BATCH * n_batches,
+        check(path_launches[conv.name] == CONV_LAUNCHES_PER_BATCH * n_batches,
               f"conv kernel launches {path_launches[conv.name]} != "
-              f"{CONVS_PER_BATCH} per batch × {n_batches}")
+              f"{CONV_LAUNCHES_PER_BATCH} per batch × {n_batches}")
         check(path_launches[k1.name] == n_batches, "K1 launches on the conv path")
-        check(path_launches[k2.name] == 0, "K2 launched on the conv path")
-        p32k = InferencePipeline(ckpts["shared"], audio=audio, spec=spec512,
-                                 infer=InferenceConfig(), device="cuda", conv3x3_max_channels=512)
+        check(path_launches[k2.name] == path_launches[probes.name] == 0,
+              "K2 or the probes' kernel launched on the conv path")
         zero_counts()
-        p32k.logits_for_windows(windows[:8])
-        check(p32k.conv3x3_max_channels == 0 and counts()[conv.name] == 0,
+        p32.logits_for_windows(windows[:8])
+        check(p32.conv3x3_max_channels == 0 and counts()[conv.name] == 0,
               "the conv kernel ran in float32")
 
-        p16 = InferencePipeline(ckpts["shared"], audio=audio, spec=spec512,
-                                infer=InferenceConfig(), compute_dtype=torch.bfloat16,
-                                device="cuda")
-        l_cudnn = p16.logits_for_windows(windows)
+        p0 = InferencePipeline(ckpts["shared"], audio=audio, spec=spec512,
+                               infer=InferenceConfig(), compute_dtype=torch.bfloat16,
+                               device="cuda", conv3x3_max_channels=0)
+        zero_counts()
+        l_plain = p0.logits_for_windows(windows)
+        check(counts()[conv.name] == 0, "the knob-0 route launched the conv kernel")
         l_f32 = p32.logits_for_windows(windows)
-        check(l_kernel.shape == l_cudnn.shape == (150, len(NAMES))
-              and bool(np.isfinite(l_kernel).all()), "conv path logits")
-        route_diff = np.abs(l_kernel - l_cudnn)
-        corr = float(np.corrcoef(l_kernel.ravel(), l_cudnn.ravel())[0, 1])
-        print(f"[conv] logits, kernel vs cuDNN route: max diff {route_diff.max():.4g}, mean "
-              f"{route_diff.mean():.4g}, corr {corr:.6f} (tol {TOL_ROUTE}); against float32: "
-              f"kernel max {np.abs(l_kernel - l_f32).max():.4g} mean "
-              f"{np.abs(l_kernel - l_f32).mean():.4g}, cuDNN max "
-              f"{np.abs(l_cudnn - l_f32).max():.4g} mean {np.abs(l_cudnn - l_f32).mean():.4g}",
+        check(l_kernel.shape == l_plain.shape == (150, len(NAMES))
+              and bool(np.isfinite(l_kernel).all()) and bool(np.isfinite(l_plain).all()),
+              "conv path logits")
+        route_diff = np.abs(l_kernel - l_plain)
+        corr = float(np.corrcoef(l_kernel.ravel(), l_plain.ravel())[0, 1])
+        print(f"[conv] logits, default (kernel) vs knob-0 route: max diff {route_diff.max():.4g} "
+              f"(tol {TOL_ROUTE}), mean {route_diff.mean():.4g} (tol {TOL_ROUTE_MEAN}), corr "
+              f"{corr:.6f}; against float32: default max {np.abs(l_kernel - l_f32).max():.4g} mean "
+              f"{np.abs(l_kernel - l_f32).mean():.4g}, knob-0 max "
+              f"{np.abs(l_plain - l_f32).max():.4g} mean {np.abs(l_plain - l_f32).mean():.4g}",
               flush=True)
-        check(float(route_diff.max()) <= TOL_ROUTE, "kernel route logits off the cuDNN route")
+        check(float(route_diff.max()) <= TOL_ROUTE and float(route_diff.mean()) <= TOL_ROUTE_MEAN,
+              "default route logits off the knob-0 route")
 
         def labels(pipe, logits):
             return [s["label"] for s in pipe.analyze_windows(windows, stamps,
                                                              logits=logits)["segments"]]
 
-        lab_k, lab_c = labels(pk, l_kernel), labels(p16, l_cudnn)
-        for other, labs in (("cuDNN bf16", lab_c), ("float32", lab32)):
-            bad = [i for i in range(150) if clear[i] and lab_k[i] != labs[i]]
-            print(f"[conv] kernel route vs {other} labels: {int(clear.sum()) - len(bad)}/"
+        lab_k, lab_0 = labels(pk, l_kernel), labels(p0, l_plain)
+        for route, labs in (("default", lab_k), ("knob-0", lab_0)):
+            bad = [i for i in range(150) if clear[i] and labs[i] != lab32[i]]
+            print(f"[conv] {route} route vs float32 labels: {int(clear.sum()) - len(bad)}/"
                   f"{int(clear.sum())} clear windows agree "
-                  f"({sum(a == b for a, b in zip(lab_k, labs))}/150 overall)", flush=True)
-            check(not bad, f"kernel route and {other} verdicts differ on clear windows {bad}")
+                  f"({sum(a == b for a, b in zip(labs, lab32))}/150 overall; "
+                  f"{sum(a == b for a, b in zip(lab_k, lab_0))}/150 between the routes)",
+                  flush=True)
+            check(not bad, f"{route} route and float32 verdicts differ on clear windows {bad}")
 
         # steady-state throughput at batch 128, the routes in turns
-        wps = {"cudnn": [], "kernel": [], "float32": []}
-        for route, pipe in (("cudnn", p16), ("kernel", pk), ("kernel", pk), ("cudnn", p16),
+        wps = {"default": [], "knob-0": [], "float32": []}
+        for route, pipe in (("default", pk), ("knob-0", p0), ("knob-0", p0), ("default", pk),
                             ("float32", p32)):
             wps[route].append(windows_per_s(pipe, windows))
         for route, vals in wps.items():
@@ -805,7 +1015,7 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 7. report
+    # 8. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -813,7 +1023,7 @@ def main() -> int:
         "route": "cuda",
         "source": cuda_melspec.SOURCE,
         "replaces": cuda_melspec.REPLACES,
-        "launches": cli_launches[k1.name],
+        "launches": sum(c[k1.name] for c in cli_launches.values()),
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -852,8 +1062,9 @@ def main() -> int:
         "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
     }]
     conv_launches = path_launches[conv.name]
-    tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5 (one bf16 ulp), bf16 out with ReLU on and "
-           "off, and float32 out")
+    tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5·max(1, √(K / 576)) for sums of K products "
+           "(one bf16 ulp, and the sums' order near 0), bf16 out with ReLU on and off, and "
+           "float32 out")
     report.append({
         "name": "K3 conv3x3_bn_relu",
         "route": "cuda",
@@ -864,12 +1075,18 @@ def main() -> int:
         "launches": conv_launches,
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "tol": tol,
-        "per": f"the {CONVS_PER_BATCH} 3x3 convs of one 128-window batch at 512²",
+        "per": f"the {CONV_LAUNCHES_PER_BATCH} conv-kernel launches of one 128-window batch "
+               "at 512² (sixteen 3x3 convs, three 1x1 downsamples at the centre tap)",
         "ms": conv_total["ms"],
         "plain_ms": conv_total["plain_ms"],
         "bound_ms": conv_total["bound_ms"],
         "bound_by": conv_total["bound_by"],
         "library_ms": conv_total["library_ms"],
+        "library": "cuDNN on BN folded into the bf16 weight and bias, then the ReLU",
+        "downsamples": {"ms": conv_total["downsample_ms"],
+                        "plain_ms": conv_total["downsample_plain_ms"],
+                        "library_ms": conv_total["downsample_library_ms"]},
+        "stem_ms": stem,
         "shapes": conv_rows,
     })
     for kid, e in conv_entries.items():
@@ -891,6 +1108,29 @@ def main() -> int:
             "bound_ms": e["bound_ms"],
             "bound_by": e["bound_by"],
             "library_ms": e["library_ms"],
+        })
+    library = {"P1": "torch.matmul on the slice",
+               "P2": "F.conv1d with 2 taps on the sliced rows",
+               "P3": "F.conv1d with 9 taps on the sliced rows"}
+    for pid, r in probe_rows.items():
+        report.append({
+            "name": f"{pid} helper probe",
+            "route": "cuda",
+            "source": cuda_probes.SOURCE,
+            "replaces": cuda_probes.REPLACES[pid],
+            "entry": f"cuda_probes.{r['entry']}",
+            # one kernel for the three probes: three launches on the probes
+            # path, one per probe (drive_probes)
+            "launches": probe_launches[probes.name] // len(probe_rows),
+            "max_abs_err": r["max_abs_err"],
+            "tol": "|kernel − plain| ≤ 2^-7·|plain| + 1e-5 (one bf16 ulp)",
+            "per": "one call at the Pallas shapes",
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library": library[pid],
         })
     print(json.dumps({"kernels": report}))
     print(smi)

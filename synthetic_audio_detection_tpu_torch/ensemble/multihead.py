@@ -101,8 +101,9 @@ class MultiHeadEnsemble(nn.Module):
 
     def compute_backbone(self, i: int, fast: bool = False, conv3x3_max_channels: int = 0):
         """Backbone i in the compute dtype: the module itself in float32, a
-        dtype copy otherwise, or the BN-folded FastResNet (whose 3x3 convs
-        with at most ``conv3x3_max_channels`` input channels run through the
+        dtype copy otherwise, or the FastResNet (the reference's
+        ``_conv_bn`` numerics; its convs with at most
+        ``conv3x3_max_channels`` input channels run through the
         hand-written conv kernel)."""
         if fast:
             return self._cached(("fast", i, conv3x3_max_channels), lambda: FastResNet(
@@ -157,15 +158,16 @@ def ensemble_per_head_logits(ens: MultiHeadEnsemble, x: torch.Tensor,
                              fast_backbone: bool = False,
                              conv3x3_max_channels: int = 0) -> torch.Tensor:
     """x [B, C, H, W] → per-head logits [N, B, 2] (before aggregation).
-    ``fast_backbone`` runs a shared backbone through the BN-folded
-    FastResNet, with ``conv3x3_max_channels`` as its kernel knob (no effect
-    without ``fast_backbone`` or on a dense layout)."""
+    ``fast_backbone`` runs a shared backbone through the FastResNet, with
+    ``conv3x3_max_channels`` as its kernel knob (no effect without
+    ``fast_backbone`` or on a dense layout)."""
     x = x.to(ens.dtype)
-    if ens.dtype != torch.float32:
+    fast = fast_backbone and ens.shared_backbone
+    if ens.dtype != torch.float32 and not fast:  # FastResNet lays out its own input
         x = x.contiguous(memory_format=torch.channels_last)
     n = ens.num_heads
     if ens.shared_backbone:
-        feats = ens.compute_backbone(0, fast=fast_backbone,
+        feats = ens.compute_backbone(0, fast=fast,
                                      conv3x3_max_channels=conv3x3_max_channels)(x)
         pooled = feats.mean(dim=(2, 3)).expand(n, -1, -1)
     else:

@@ -12,19 +12,25 @@ size), as in the reference package.
 Front-end gate, as the reference package sets it: on CUDA with a reduced
 compute dtype the front end is the factored log-mel kernel
 (ops/cuda_melspec.py, bf16 DFT); otherwise the float32 GEMM front end. The
-gate reads the device and dtype only. On CUDA a float32 pipeline turns TF32
-off for convolutions and matmuls, so float32 is float32.
+gate reads the device and dtype only. A float32 forward runs inside
+``exact_float32()`` (ops/precision.py): TF32 off for its convolutions and
+matmuls, so float32 is float32, and the process's flags as they were
+outside it.
 
-The same gate, with a shared backbone, engages the BN-folded fast backbone;
-``conv3x3_max_channels`` (default 0, off) then routes its 3x3 convs with at
-most that many input channels through the hand-written conv kernel
-(ops/cuda_conv.py). Elsewhere the knob has no effect.
+The same gate, with a shared backbone, engages the fast backbone
+(models/fast_resnet.py, the reference's ``_conv_bn`` numerics for every
+conv); ``conv3x3_max_channels`` (default 512: every 3x3 conv and 1x1
+downsample of ResNet-18/34) routes its convs with at most that many input
+channels through the hand-written conv kernel (ops/cuda_conv.py), and 0
+through the kernel's plain composition, with the same numerics. Elsewhere
+the knob has no effect.
 
 The pipeline runs on the GPU unless the caller asks for ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -48,6 +54,7 @@ from synthetic_audio_detection_tpu_torch.ensemble.multihead import (
 from synthetic_audio_detection_tpu_torch.ops import melspec
 from synthetic_audio_detection_tpu_torch.ops.cuda_melspec import dequantize, serving_log_mel
 from synthetic_audio_detection_tpu_torch.ops.filters import gaussian_filter1d
+from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
 
 
 # ---------------------------------------------------------------------------
@@ -107,7 +114,7 @@ def forward_windows(
     use_kernel: bool = False,
     use_fast_backbone: bool = False,
     return_per_head: bool = False,
-    conv3x3_max_channels: int = 0,
+    conv3x3_max_channels: int = 512,
 ):
     """[B, T] windows (float32, or int16 PCM) → [B, N+1] logits, and with
     ``return_per_head`` also the per-head logits [N, B, 2] of the same
@@ -142,15 +149,12 @@ class InferencePipeline:
         compute_dtype: torch.dtype = torch.float32,
         device: Any = "cuda",
         transport_dtype: str = "float32",
-        conv3x3_max_channels: int = 0,
+        conv3x3_max_channels: int = 512,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("device cuda requested but CUDA is not available")
-            if compute_dtype == torch.float32:
-                torch.backends.cudnn.allow_tf32 = False
-                torch.backends.cuda.matmul.allow_tf32 = False
         reduced = compute_dtype != torch.float32
         on_gpu = self.device.type == "cuda"
         self.spec = spec or SpectrogramConfig.inference()
@@ -175,11 +179,13 @@ class InferencePipeline:
         self.conv3x3_max_channels = conv3x3_max_channels if self.use_fast_backbone else 0
 
     def _forward(self, batch: torch.Tensor, return_per_head: bool = False):
-        return forward_windows(
-            self.ensemble, batch, self.spec, self.audio.sample_rate,
-            use_kernel=self.use_kernel,
-            use_fast_backbone=self.use_fast_backbone, return_per_head=return_per_head,
-            conv3x3_max_channels=self.conv3x3_max_channels)
+        exact = self.compute_dtype == torch.float32
+        with exact_float32() if exact else contextlib.nullcontext():
+            return forward_windows(
+                self.ensemble, batch, self.spec, self.audio.sample_rate,
+                use_kernel=self.use_kernel,
+                use_fast_backbone=self.use_fast_backbone, return_per_head=return_per_head,
+                conv3x3_max_channels=self.conv3x3_max_channels)
 
     # -- calibration --------------------------------------------------------
 
@@ -267,8 +273,8 @@ class InferencePipeline:
     def per_head_sigmoids(self, windows: np.ndarray,
                           serving_numerics: bool = True) -> np.ndarray:
         """[num, T] → [num, N, 2] per-head sigmoids. ``serving_numerics``
-        False uses the float32 front end and float32 ensemble whatever the
-        pipeline's configuration."""
+        False uses the float32 front end and float32 ensemble, TF32 off,
+        whatever the pipeline's configuration."""
         if windows.shape[0] == 0:
             return np.zeros((0, self.ensemble.num_heads, 2), np.float32)
         if serving_numerics:
@@ -277,8 +283,9 @@ class InferencePipeline:
         ens32 = with_dtype(self.ensemble, torch.float32)
         out = []
         for batch, take in self._bucketed_batches(windows, quantize=False):
-            _, nh = forward_windows(ens32, batch, self.spec, self.audio.sample_rate,
-                                    return_per_head=True)
+            with exact_float32():
+                _, nh = forward_windows(ens32, batch, self.spec, self.audio.sample_rate,
+                                        return_per_head=True)
             out.append(nh.cpu().numpy().transpose(1, 0, 2)[:take])
         probs = 1.0 / (1.0 + np.exp(-np.concatenate(out, axis=0)))
         return probs.astype(np.float32)

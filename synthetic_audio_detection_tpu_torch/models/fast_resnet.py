@@ -1,18 +1,37 @@
-"""Eval-mode ResNet forward with each BatchNorm folded into its conv (the
-reference package's ``models/fast_resnet.py``).
+"""Eval-mode ResNet forward with every conv + BN computed as the reference
+package's ``models/fast_resnet.py:_conv_bn`` computes it: a conv of
+operands rounded to the compute dtype, summed in float32, then the eval BN
+as a float32 affine ``y·scale + bias`` (scale = γ/√(σ² + ε), bias =
+β − μ·scale), the optional ReLU, and one rounding to the compute dtype.
+Activations stay in the compute dtype and ``channels_last`` layout; the
+max-pool and ``relu(out + identity)`` run on them as in the reference.
 
-Every conv + eval BN pair becomes one ``F.conv2d`` with weight
-``w · γ/√(σ² + ε)`` and bias ``β − μ·γ/√(σ² + ε)``, in the compute dtype and
-``channels_last`` layout. cuDNN runs the conv; the bias, the ReLU and the
-residual add run as separate elementwise passes over the activations.
+``conv3x3_max_channels`` is the reference's ``gemm_max_channels`` knob: 0
+runs no kernel, and a conv with at most that many input channels runs
+through the hand-written conv + BN + ReLU kernel (``ops/cuda_conv.py``),
+whose epilogue applies the affine and the ReLU in float32 and rounds once:
 
-``conv3x3_max_channels`` is the reference's ``gemm_max_channels`` knob
-(same meaning, same default 0): a 3x3 conv with at most that many input
-channels runs through the hand-written conv + BN + ReLU kernel
-(``ops/cuda_conv.py``) instead, with the unscaled bf16 weight (packed once
-here) and the BN affine applied in float32 in the kernel's epilogue, the
-numerics of the reference's ``_conv_bn``. The 7x7 stem, the 1x1 downsample
-convs, the max-pool and ``relu(out + identity)`` stay as they are.
+- a 3x3 conv with its own weight;
+- a 1x1 downsample with its weight at the centre tap of an otherwise zero
+  3x3 weight. A 3x3, pad-1 output pixel is centred on the input pixel a
+  1x1, pad-0 conv reads at the same stride, and the other eight taps add
+  exact zeros, so the result is the 1x1 conv's.
+
+Every other conv (the 7x7 stem, whose three input channels the kernel does
+not take, and any conv above the knob) is ``cuda_conv.conv_bn_relu_plain``:
+a float32 conv of the rounded operands with TF32 off, the counterpart of
+the reference's ``lax.conv`` branch. Both ways compute the same function;
+only the float32 summation order inside a conv differs.
+
+The serving input repeats one log-mel plane on three channels as a
+broadcast view (``melspec.replicate_channels``: stride 0 on the channel
+axis). For such an input the stem convolves the one plane with its
+bf16-rounded weight summed over the three input channels in float32: a
+third of the products. The sum of three bf16 weights is exact in float32
+unless their exponents lie far apart, and so is its product with a bf16
+value unless the sum needs more than 16 significant bits; otherwise the
+product rounds once more in float32. Either way the change is of the
+size of the summation order's.
 
 Built once from an ``nn.Module`` backbone; the backbone itself is not
 changed.
@@ -21,7 +40,7 @@ changed.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -29,19 +48,6 @@ import torch.nn.functional as F
 
 from synthetic_audio_detection_tpu_torch.models.resnet import ResNet
 from synthetic_audio_detection_tpu_torch.ops import cuda_conv
-
-
-@dataclass
-class FoldedConv:
-    weight: torch.Tensor
-    bias: torch.Tensor
-    stride: int
-    padding: int
-    relu: bool
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
-        return torch.relu(y) if self.relu else y
 
 
 @dataclass
@@ -64,6 +70,28 @@ class KernelConv:
         return y.permute(0, 3, 1, 2)
 
 
+@dataclass
+class PlainConv:
+    """A conv + eval BN (+ ReLU) as ``cuda_conv.conv_bn_relu_plain``
+    computes it, with the weight rounded once, here."""
+
+    weight: torch.Tensor  # [F, C, kh, kw] float32 holding the weight rounded to dtype
+    scale: torch.Tensor
+    bias: torch.Tensor
+    stride: int
+    padding: int
+    relu: bool
+    dtype: torch.dtype
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return cuda_conv.conv_f32_bn_relu(x.to(self.dtype).float(), self.weight, self.scale,
+                                          self.bias, self.stride, self.padding, self.relu,
+                                          self.dtype)
+
+
+Conv = Union[KernelConv, PlainConv]
+
+
 def bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval BN as (scale, bias) in float32."""
     alpha = bn.weight / torch.sqrt(bn.running_var + bn.eps)
@@ -71,26 +99,35 @@ def bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 @torch.no_grad()
-def fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
-                 relu: bool = False) -> FoldedConv:
+def plain_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype, relu: bool,
+                  sum_input_channels: bool = False) -> PlainConv:
+    """``sum_input_channels``: the weight for an input whose channels are
+    one plane repeated, summed over its input axis in float32 after the
+    rounding."""
+    weight = conv.weight.to(dtype).float()
+    if sum_input_channels:
+        weight = weight.sum(dim=1, keepdim=True)
     alpha, beta = bn_affine(bn)
-    weight = conv.weight * alpha[:, None, None, None]
-    return FoldedConv(weight.to(dtype).contiguous(memory_format=torch.channels_last),
-                      beta.to(dtype), conv.stride[0], conv.padding[0], relu)
+    return PlainConv(weight.contiguous(memory_format=torch.channels_last), alpha.float(),
+                     beta.float(), conv.stride[0], conv.padding[0], relu, dtype)
 
 
 @torch.no_grad()
 def kernel_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, relu: bool) -> KernelConv:
+    """The kernel's packed [F, 3, 3, C] bf16 weight; a 1x1 conv's weight
+    goes to the centre tap of zeros."""
+    w = conv.weight.to(torch.bfloat16).permute(0, 2, 3, 1)  # [F, kh, kw, C]
+    if conv.kernel_size == (1, 1):
+        w = F.pad(w, (0, 0, 1, 1, 1, 1))
     alpha, beta = bn_affine(bn)
-    weight = conv.weight.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
-    return KernelConv(weight, alpha.float().contiguous(), beta.float().contiguous(),
+    return KernelConv(w.contiguous(), alpha.float().contiguous(), beta.float().contiguous(),
                       conv.stride[0], relu)
 
 
 @dataclass
-class FoldedBlock:
-    convs: List  # conv1, conv2[, conv3]; all but the last apply their ReLU
-    downsample: Optional[FoldedConv]
+class Block:
+    convs: List[Conv]  # conv1, conv2[, conv3]; all but the last apply their ReLU
+    downsample: Optional[Conv]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
@@ -106,21 +143,27 @@ class FastResNet:
     def __init__(self, backbone: ResNet, dtype: torch.dtype = torch.bfloat16,
                  conv3x3_max_channels: int = 0):
         if backbone.first_stage != 1:
-            raise ValueError("FastResNet folds a full backbone (stem included)")
+            raise ValueError("FastResNet takes a full backbone (stem included)")
         if conv3x3_max_channels > 0 and dtype != torch.bfloat16:
             raise ValueError("the 3x3 conv kernel computes in bfloat16; "
                              f"conv3x3_max_channels needs dtype bfloat16, got {dtype}")
         self.dtype = dtype
         self.conv3x3_max_channels = conv3x3_max_channels
 
-        def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, relu: bool):
-            if (conv.kernel_size == (3, 3) and conv.padding == (1, 1)
-                    and conv.in_channels <= conv3x3_max_channels):
+        def conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, relu: bool,
+                    downsample: bool = False) -> Conv:
+            fits = ((conv.kernel_size == (3, 3) and conv.padding == (1, 1))
+                    or (downsample and conv.kernel_size == (1, 1) and conv.padding == (0, 0)))
+            if fits and conv.in_channels <= conv3x3_max_channels:
                 return kernel_conv_bn(conv, bn, relu)
-            return fold_conv_bn(conv, bn, dtype, relu)
+            return plain_conv_bn(conv, bn, dtype, relu)
 
-        self.stem = fold_conv_bn(backbone.conv1, backbone.bn1, dtype, relu=True)
-        self.blocks: List[FoldedBlock] = []
+        # the stem's ReLU runs after the max-pool, on a quarter of the
+        # pixels: both are monotone, so the two orders give the same values
+        self.stem = plain_conv_bn(backbone.conv1, backbone.bn1, dtype, relu=False)
+        self.stem_one_plane = plain_conv_bn(backbone.conv1, backbone.bn1, dtype, relu=False,
+                                            sum_input_channels=True)
+        self.blocks: List[Block] = []
         for stage in range(1, backbone.last_stage + 1):
             for blk in getattr(backbone, f"layer{stage}"):
                 pairs = [(blk.conv1, blk.bn1), (blk.conv2, blk.bn2)]
@@ -128,14 +171,23 @@ class FastResNet:
                     pairs.append((blk.conv3, blk.bn3))
                 ds = None
                 if blk.downsample is not None:
-                    ds = fold_conv_bn(blk.downsample[0], blk.downsample[1], dtype)
+                    ds = conv_bn(blk.downsample[0], blk.downsample[1], False, downsample=True)
                 convs = [conv_bn(c, b, relu=j + 1 < len(pairs)) for j, (c, b) in enumerate(pairs)]
-                self.blocks.append(FoldedBlock(convs, ds))
+                self.blocks.append(Block(convs, ds))
+
+    @torch.no_grad()
+    def stem_pool(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem, its max-pool and its ReLU: [B, C, H, W] → the first
+        block's input."""
+        stem = self.stem
+        if x.shape[1] > 1 and x.stride(1) == 0:  # one plane on every channel
+            x, stem = x[:, :1], self.stem_one_plane
+        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
+        return torch.relu_(F.max_pool2d(stem(x), 3, 2, 1))
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        x = F.max_pool2d(self.stem(x), 3, 2, 1)
+        x = self.stem_pool(x)
         for blk in self.blocks:
             x = blk(x)
         return x

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from synthetic_audio_detection_tpu_torch.ops import build
+from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
 
 LIBRARY = "conv3x3_wgmma"
 SOURCE = f"synthetic_audio_detection_tpu_torch/csrc/{LIBRARY}.cu"
@@ -93,25 +94,47 @@ def _affine(v: Optional[torch.Tensor], fill: float, n: int, device) -> torch.Ten
     return v if v.data_ptr() % 8 == 0 else v.clone()  # the kernel loads float2
 
 
+def conv_f32_bn_relu(xf: torch.Tensor, wf: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, stride: int, padding: int, relu: bool,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """The float32 end of ``conv_bn_relu_plain``, on float32 operands as
+    given: the conv with TF32 off, ``y·scale + bias`` as a float32 multiply
+    and a float32 add, the ReLU, one rounding to ``out_dtype``. The rounding
+    goes straight into the output (one pass over the float32 conv), and the
+    ReLU follows it, with which it commutes. The output is channels_last
+    (so its NHWC view is contiguous) whatever layout the conv picked, as it
+    may for one input channel."""
+    with exact_float32():
+        y = F.conv2d(xf, wf, stride=stride, padding=padding)
+    y.mul_(scale.float()[None, :, None, None])
+    out = torch.empty_like(y, dtype=out_dtype, memory_format=torch.channels_last)
+    torch.add(y, bias.float()[None, :, None, None], out=out)
+    return out.relu_() if relu else out
+
+
+def conv_bn_relu_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                       bias: torch.Tensor, stride: int, padding: int, relu: bool,
+                       dtype: torch.dtype = torch.bfloat16,
+                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The reference's ``_conv_bn`` in plain PyTorch, for any kernel size:
+    x [B, C, H, W] and w [F, C, kh, kw] rounded to ``dtype``, the conv in
+    float32 (TF32 off, so every product of bf16 values is exact), the
+    float32 affine, the ReLU, one rounding to ``out_dtype`` (default
+    ``dtype``; ``conv_f32_bn_relu``)."""
+    return conv_f32_bn_relu(x.to(dtype).float(), w.to(dtype).float(), scale, bias, stride,
+                            padding, relu, dtype if out_dtype is None else out_dtype)
+
+
 def conv3x3_bn_relu_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                           bias: torch.Tensor, stride: int = 1, relu: bool = True,
                           out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The kernel's function in plain PyTorch: x and w rounded to bf16, the
-    conv in float32 (TF32 off, so every bf16 product is exact and only the
-    summation order differs from the kernel), the float32 affine, the ReLU,
-    one rounding to ``out_dtype``. Returns contiguous NHWC."""
-    xf = x.to(torch.bfloat16).float().permute(0, 3, 1, 2)
-    wf = w.to(torch.bfloat16).float().permute(3, 2, 0, 1)  # HWIO → OIHW
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        y = F.conv2d(xf, wf, stride=stride, padding=1)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
-    y = y * scale.float()[None, :, None, None] + bias.float()[None, :, None, None]
-    if relu:
-        y = torch.relu(y)
-    return y.to(out_dtype).permute(0, 2, 3, 1).contiguous()
+    """The kernel's function in plain PyTorch (``conv_bn_relu_plain`` on x
+    [B, H, W, C] and w [3, 3, C, F] with bf16 operands, padding 1): only
+    the float32 summation order differs from the kernel. Returns contiguous
+    NHWC."""
+    y = conv_bn_relu_plain(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), scale, bias,
+                           stride, 1, relu, torch.bfloat16, out_dtype)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def tile_plan(F: int, Ho: int, Wo: int, stride: int) -> Tuple[int, int, int]:

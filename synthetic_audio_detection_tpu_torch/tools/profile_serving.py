@@ -6,9 +6,12 @@
 
 Builds a shared-backbone ResNet-18 ensemble (3 heads, weights from
 ``--seed``) and a batch of seeded noise windows, runs the bf16
-``InferencePipeline`` at 512² on each route (``cudnn``: every conv through
-cuDNN; ``kernel``: the 3x3 convs through the hand-written conv kernel,
-``conv3x3_max_channels=512``), warms it up, then traces ``--batches``
+``InferencePipeline`` at 512² on each route (``kernel``: the default,
+``conv3x3_max_channels=512``, the 3x3 convs and 1x1 downsamples through the
+hand-written conv kernel; ``knob-0``: every conv the kernel's plain
+composition, a float32 cuDNN conv of the bf16 values with TF32 off, the
+same numerics; the 7x7 stem is the plain composition on both), warms it
+up, then traces ``--batches``
 128-window batches with ``torch.profiler``. The ``front-*`` routes trace
 the mel-only front end alone on the same windows, already on the card:
 log-mel (``front-k2``: the strip kernel's ``fused_log_mel``; ``front-k1``:
@@ -42,7 +45,8 @@ PARTS: List[Tuple[str, Tuple[str, ...]]] = [
     ("resize", ("upsample", "bilinear", "interpolate")),
     ("cuDNN convolutions", ("conv", "xmma", "implicit", "cudnn", "fprop", "nhwc", "nchw")),
     ("heads (GEMM)", ("gemm", "gemv", "cutlass", "bmm")),
-    ("add (bias, residual)", ("add",)),
+    ("multiply (BN scale)", ("mul",)),
+    ("add (BN bias, residual)", ("add",)),
     ("ReLU", ("clamp", "relu", "threshold")),
     ("mean (pooling)", ("reduce", "mean")),
     ("casts and copies", ("copy", "to_copy", "cast", "direct_copy")),
@@ -107,7 +111,7 @@ def profile_route(run, batches: int) -> Dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batches", type=int, default=3)
-    p.add_argument("--routes", default="cudnn,kernel")
+    p.add_argument("--routes", default="knob-0,kernel")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="", help="write the result as JSON to this file")
     args = p.parse_args(argv)
@@ -147,7 +151,7 @@ def main(argv=None) -> int:
                 torch.bfloat16)
         pipe = InferencePipeline(ens, spec=spec, infer=InferenceConfig(),
                                  compute_dtype=torch.bfloat16, device="cuda",
-                                 conv3x3_max_channels={"cudnn": 0, "kernel": 512}[route])
+                                 conv3x3_max_channels={"knob-0": 0, "kernel": 512}[route])
         return lambda: pipe.logits_for_windows(windows)
 
     result = {"device": smi, "torch": torch.__version__, "batch": 128, "input": 512,

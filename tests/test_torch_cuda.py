@@ -13,14 +13,20 @@ import numpy as np
 import pytest
 import torch
 
+from synthetic_audio_detection_tpu_torch.ensemble.multihead import build_ensemble
+from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
+from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+from synthetic_audio_detection_tpu_torch.models.fast_resnet import FastResNet
 from synthetic_audio_detection_tpu_torch.ops import (
     cuda_conv,
     cuda_conv_flat,
     cuda_melspec,
     cuda_melspec_strip,
+    cuda_probes,
     melspec,
 )
-from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
+from synthetic_audio_detection_tpu_torch.tools import helper_bisect
+from synthetic_audio_detection_tpu_torch.utils.config import InferenceConfig, SpectrogramConfig
 
 CFG = SpectrogramConfig(mel_norm="slaney")
 # conv kernel vs its plain version: both form every bf16 product exactly in
@@ -242,3 +248,126 @@ def test_conv_kernel_raises_instead_of_falling_back():
         cuda_conv.conv3x3_bn_relu(x[..., :4].contiguous(), w[:, :, :4], scale, bias)
     with pytest.raises(ValueError, match="w on"):
         cuda_conv.conv3x3_bn_relu(x, w.cpu(), scale, bias)
+
+
+def _seeded_ensemble(seed=0, heads=2):
+    """A shared-backbone ResNet-18 ensemble from seeded torch inits, with
+    BN statistics perturbed from the seed (so eval BN is not an identity)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        models = [BinaryClassifier("resnet18") for _ in range(heads)]
+    with torch.no_grad():
+        for m in models[0].modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g))
+    base = {k: v for k, v in models[0].state_dict().items() if k.startswith("base.")}
+    sds = [{**base, **{k: v for k, v in m.state_dict().items() if k.startswith("head.")}}
+           for m in models]
+    names = [f"Syn{i}" for i in range(heads)] + ["Real"]
+    return build_ensemble(sds, names)
+
+
+@pytest.mark.cuda
+def test_fast_backbone_routes_agree_on_the_card():
+    """Full-depth ResNet-18 at 64², bf16: the kernel route (knob 512, 19
+    launches: sixteen 3x3 convs and three downsamples) against the knob-0
+    route (every conv the plain composition). The same function; only the
+    float32 summation order inside each conv differs, so the bounds are the
+    CPU tests' against the reference (tests/test_torch_conv.py)."""
+    _cuda_or_skip()
+    net = _seeded_ensemble().backbones[0].cuda()
+    x = torch.from_numpy((np.random.default_rng(11).standard_normal((2, 3, 64, 64)) * 0.4)
+                         .astype(np.float32)).cuda()
+    before = cuda_conv.KERNEL.launches
+    got = FastResNet(net, torch.bfloat16, 512)(x)
+    torch.cuda.synchronize()
+    assert cuda_conv.KERNEL.launches == before + 19
+    ref = FastResNet(net, torch.bfloat16, 0)(x)
+    torch.cuda.synchronize()
+    assert cuda_conv.KERNEL.launches == before + 19
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    assert float(d.mean() / ref.abs().mean()) < 2e-3
+    assert float((d <= 2.0 ** -5 * ref.abs() + 1e-3).float().mean()) >= 0.998
+    assert float(torch.corrcoef(torch.stack([got.ravel(), ref.ravel()]))[0, 1]) > 0.99999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16_first", [True, False])
+def test_float32_view_of_a_bf16_pipeline_is_float32(bf16_first):
+    """per_head_sigmoids(serving_numerics=False) on a bf16 pipeline equals a
+    float32 pipeline's per-head sigmoids (1e-5: the same float32 operations,
+    TF32 off for both), whichever pipeline was built first, and neither
+    changes the process's TF32 flags."""
+    _cuda_or_skip()
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ens = _seeded_ensemble(seed=3)
+        spec = SpectrogramConfig.inference(out_size=64)
+        kw = dict(spec=spec, infer=InferenceConfig(batch_size=8), device="cuda")
+        order = (torch.bfloat16, torch.float32) if bf16_first else (torch.float32, torch.bfloat16)
+        pipes = {dtype: InferencePipeline(ens, compute_dtype=dtype, **kw) for dtype in order}
+        w = (np.random.default_rng(4).standard_normal((3, 128_000)) * 0.2).astype(np.float32)
+        view = pipes[torch.bfloat16].per_head_sigmoids(w, serving_numerics=False)
+        f32 = pipes[torch.float32].per_head_sigmoids(w)
+        np.testing.assert_allclose(view, f32, rtol=0, atol=1e-5)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (
+            True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+PROBES = {"P1": (cuda_probes.dyn_slice_dot, cuda_probes.dyn_slice_dot_plain, (64, 64)),
+          "P2": (cuda_probes.lane_concat_dot, cuda_probes.lane_concat_dot_plain, (64, 64)),
+          "P3": (cuda_probes.nine_tap_dot, cuda_probes.nine_tap_dot_plain, (9, 64, 64))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", sorted(PROBES))
+def test_probe_kernel_matches_plain_version(probe):
+    """At the Pallas shapes, one launch per call, within one bf16 ulp of
+    the plain version (the same exact products summed in another order),
+    and the same bits twice."""
+    _cuda_or_skip()
+    entry, plain, w_shape = PROBES[probe]
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(cuda_probes.X_SHAPE).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal(w_shape) / 8).astype(np.float32))
+    x, w = x.to(torch.bfloat16).cuda(), w.to(torch.bfloat16).cuda()
+    before = cuda_probes.KERNEL.launches
+    got = entry(x, w)
+    torch.cuda.synchronize()
+    assert cuda_probes.KERNEL.launches == before + 1
+    ref = plain(x, w)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -7, atol=1e-5)
+    assert torch.equal(got, entry(x, w))
+
+
+@pytest.mark.cuda
+def test_helper_bisect_on_the_card(capsys):
+    """The three exact sums, one kernel launch per probe."""
+    _cuda_or_skip()
+    before = cuda_probes.KERNEL.launches
+    assert helper_bisect.main([]) == 0
+    assert cuda_probes.KERNEL.launches == before + 3
+    assert capsys.readouterr().out.splitlines() == [
+        "F1 dyn-dslice : OK 14680064.0",
+        "F2 lane-concat : OK 4194304.0",
+        "F3 9-tap-static : OK 18874368.0",
+    ]
+
+
+@pytest.mark.cuda
+def test_probe_kernel_raises_instead_of_falling_back():
+    _cuda_or_skip()
+    n = int(np.prod(cuda_probes.X_SHAPE))
+    x = torch.zeros(n + 1, dtype=torch.bfloat16, device="cuda")[1:].view(cuda_probes.X_SHAPE)
+    w = torch.zeros(64, 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_probes.dyn_slice_dot(x, w)
+    with pytest.raises(ValueError, match="w on"):
+        cuda_probes.dyn_slice_dot(x.contiguous(), w.cpu())

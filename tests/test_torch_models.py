@@ -158,8 +158,9 @@ def test_fold_to_mono_gives_equal_logits(jax_vars, images, layout):
 
 
 def test_fast_backbone_matches_module(jax_vars, images):
-    """BN folded into the conv weights: float32 rounding (1e-4); in bf16
-    the logits move by bf16 activation rounding (0.05)."""
+    """The reference's _conv_bn arithmetic against the module's BN: float32
+    rounding (1e-4); in bf16 the logits move by bf16 activation rounding
+    (0.05)."""
     te = _port_ensemble(_jax_ensemble(jax_vars, "shared"))
     x = nchw(images[1])
     ref = TE.ensemble_per_head_logits(te, x)

@@ -36,6 +36,7 @@ from synthetic_audio_detection_tpu_torch.checkpoints import from_jax
 from synthetic_audio_detection_tpu_torch.cli import inference_runner
 from synthetic_audio_detection_tpu_torch.infer import pipeline as TP
 from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
 
 NAMES = ["SynA", "SynB", "Real"]
 SPEC = SpectrogramConfig.inference(out_size=64)
@@ -211,6 +212,60 @@ def test_front_end_gate_follows_device_and_dtype(jax_vars):
     assert not cpu_bf16.use_kernel and not cpu_bf16.use_fast_backbone
     assert cpu_bf16.conv3x3_max_channels == 0  # the conv kernel rides on the fast backbone
     assert cpu_bf16.ensemble.dtype == torch.bfloat16
+
+
+def _tf32_flags():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags True for the test, the caller's values after it."""
+    saved = _tf32_flags()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_exact_float32_restores_both_flags(tf32_on):
+    with exact_float32():
+        assert _tf32_flags() == (False, False)
+        with exact_float32():
+            assert _tf32_flags() == (False, False)
+        assert _tf32_flags() == (False, False)
+    assert _tf32_flags() == (True, True)
+    with pytest.raises(RuntimeError, match="inside"):
+        with exact_float32():
+            raise RuntimeError("inside")
+    assert _tf32_flags() == (True, True)
+
+
+def test_float32_forward_scopes_tf32(jax_vars, tf32_on, monkeypatch):
+    """Building a pipeline leaves the flags as they were; a float32 forward,
+    and the float32 view of a bf16 pipeline (per_head_sigmoids with
+    serving_numerics=False), run with both off and restore them; a bf16
+    forward runs with the caller's flags. On the CPU the flags select
+    nothing: this shows their scope, the cuda tests their effect."""
+    seen = []
+    forward = TP.forward_windows
+
+    def spy(*args, **kwargs):
+        seen.append(_tf32_flags())
+        return forward(*args, **kwargs)
+
+    monkeypatch.setattr(TP, "forward_windows", spy)
+    _, te = _ensembles(jax_vars)
+    w = (np.random.default_rng(6).standard_normal((3, AUDIO.window_samples)) * 0.2
+         ).astype(np.float32)
+    for dtype, flags in ((torch.float32, (False, False)), (torch.bfloat16, (True, True))):
+        tp = TP.InferencePipeline(te, audio=AUDIO, spec=SPEC, infer=InferenceConfig(batch_size=8),
+                                  compute_dtype=dtype, device="cpu")
+        assert _tf32_flags() == (True, True)
+        seen.clear()
+        tp.logits_for_windows(w)
+        tp.per_head_sigmoids(w, serving_numerics=False)
+        assert seen == [flags, (False, False)]
+        assert _tf32_flags() == (True, True)
 
 
 def test_cuda_device_without_cuda_raises(jax_vars):

@@ -21,7 +21,9 @@ from synthetic_audio_detection_tpu_torch.tools import profile_serving as P
     ("void at::native::max_pool_forward_nhwc<c10::BFloat16>", "max-pool"),
     ("void at::native::upsample_bilinear2d_out_frame<float>", "resize"),
     ("vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<c10::BFloat16>>",
-     "add (bias, residual)"),
+     "add (BN bias, residual)"),
+    ("vectorized_elementwise_kernel<4, at::native::BinaryFunctor<float, float, float, "
+     "at::native::binary_internal::MulFunctor<float>>>", "multiply (BN scale)"),
     ("vectorized_elementwise_kernel<4, at::native::launch_clamp_scalar>", "ReLU"),
     ("something_else", "other"),
 ])
