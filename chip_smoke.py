@@ -13,9 +13,15 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            tolerance, timed with CUDA events (median of 20 back-to-back
            launches after warm-up) beside its bound and, where one PyTorch
            call computes the same function, that call:
-           - K1, the factored log-mel kernel, at [128, 128000] waveforms
-             (numpy seed), with the float32 tail and with lowp_tail (bf16
-             mel product and output), as z-scores and as dB;
+           - K1, the factored log-mel kernel (bf16 pre-pass; wgmma DFT fed
+             by TMA with frames, Hann, power and the sparse mel product in
+             its epilogue; the dB / standardize tail), at [128, 128000]
+             waveforms (numpy seed), with the float32 tail and with
+             lowp_tail (bf16 mel product and output), as z-scores and as
+             dB; its device time split by launch (torch.profiler); and the
+             same function as a composition of library calls (torch.stft →
+             |X|² → filterbank matmul → dB → standardize), the yardstick of
+             K1 and K2;
            - K2, the strip log-mel kernel, on the same windows: against its
              plain version, against the float32 GEMM front end within the
              reference's bound, and against K1;
@@ -121,6 +127,8 @@ PEAK_F32 = 67e12
 HBM_BYTES_S = 3.35e12
 
 BATCH = 128
+LIBRARY_LOG_MEL = ("a composition of library calls, not one call: torch.stft (cuFFT) → |X|² → "
+                   "filterbank torch.matmul → dB → standardize, at [128, 128000]")
 # the nineteen conv-kernel launches of one ResNet-18 batch at 512² input:
 # (where, H, W, C, F, stride, kernel side, convs per batch); layer1 runs at
 # 128² after the stem and max-pool; a 1x1 downsample runs as a 3x3 with its
@@ -323,7 +331,7 @@ def check_k1(k1, cfg):
     and with lowp_tail; → report fields."""
     import torch
 
-    from synthetic_audio_detection_tpu_torch.ops import melspec
+    from synthetic_audio_detection_tpu_torch.ops import cuda_melspec, melspec
 
     x = kernel_windows()
     report = {}
@@ -357,24 +365,90 @@ def check_k1(k1, cfg):
         if not standardize:
             db_std = ref.std(dim=(1, 2))  # each window's dB spread, for the z bound
         report[standardize] = dict(err=err, tol=tol, ms=ms, plain_ms=plain_ms, err32=err32,
+                                   ref32=ref32,
                                    lowp=check_lowp_tail(k1, x, cfg, standardize, got, db_std))
 
-    # bound: the block DFT on the tensor cores in bf16 and the float32 mel
-    # product, the waveforms in and the z-scores out (the constants too);
-    # the filterbank is triangular, so the mel product needs one multiply
-    # and add per nonzero weight, not the dense [n_sig, n_mels] product
-    blocks, n_frames = melspec.factored_blocks(x, cfg)
-    cs_t, fb, ncp, n_sig = k1._constants(cfg, SR, x.device)
-    B, nb, hop = blocks.shape
-    dft = 2.0 * B * nb * hop * 2 * ncp
-    mel = 2.0 * B * n_frames * int(torch.count_nonzero(fb))
-    nbytes = (x.numel() * 4 + B * cfg.n_mels * n_frames * 4
-              + cs_t.numel() * 2 + fb.numel() * 4)
-    b_ms, b_by = bound([(dft, PEAK_BF16), (mel, PEAK_F32)], nbytes)
-    print(f"[kernels] K1 bound {b_ms:.4f} ms ({b_by}): block DFT {dft / 1e9:.2f} GFLOP bf16, "
-          f"mel product {mel / 1e9:.3f} GFLOP float32, {nbytes / 1e6:.1f} MB", flush=True)
+    # bound, from the work the function needs (cuda_melspec.work): each hop
+    # block's DFT against the bins up to the guard bin on the tensor cores
+    # in bf16, and one float32 multiply-add per filterbank nonzero a frame;
+    # the waveforms in, the z-scores out and the constants read once. The
+    # tiling's halos and its groups of 4 bins are printed beside it.
+    c = k1.constants(cfg, SR, x.device)
+    B, T = x.shape
+    w = cuda_melspec.work(c, cfg, B, T)
+    nbytes = (x.numel() * 4 + B * cfg.n_mels * (1 + T // cfg.hop_length) * 4
+              + sum(c[k].numel() * c[k].element_size() for k in ("cs", "f0", "weights", "ends",
+                                                                  "quads")))
+    b_ms, b_by = bound([(w["dft_min"], PEAK_BF16), (w["mel_min"], PEAK_F32)], nbytes)
+    z = report[True]
+    print(f"[kernels] K1 bound {b_ms:.4f} ms ({b_by}): DFT {w['dft_min'] / 1e9:.2f} GFLOP bf16, "
+          f"mel product {w['mel_min'] / 1e9:.4f} GFLOP float32 "
+          f"({int(torch.count_nonzero(c['weights']))} filterbank nonzeros a frame), "
+          f"{nbytes / 1e6:.1f} MB; the kernel at {100 * b_ms / z['ms']:.1f}% of it. "
+          f"The tiling's own work: DFT {w['dft'] / 1e9:.2f} GFLOP "
+          f"({w['dft'] / w['dft_min']:.3f}× with the tiles' and bands' halos), mel product "
+          f"{w['mel'] / 1e9:.4f} GFLOP ({w['mel'] / w['mel_min']:.3f}× in groups of 4 bins)",
+          flush=True)
     report["bound"] = (b_ms, b_by)
+    report["dft_halo_factor"] = w["dft"] / w["dft_min"]
+    report["launch_ms"] = k1_launch_ms(k1, x, cfg)
+    report["library_ms"] = library_log_mel_ms(x, cfg, z["ref32"])
     return report
+
+
+def k1_launch_ms(k1, x, cfg, calls: int = 10):
+    """K1's device time per call split by launch, from torch.profiler over
+    ``calls`` calls after warm-up: {kernel name: ms per call}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        k1(x, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            k1(x, cfg)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = next((k for k in ("pad_bf16_kernel", "dft_mel_kernel", "db_standardize_kernel")
+                         if k in e.name), e.name)
+            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    check(len(split) == 3, f"K1's three launches in the profile: {sorted(split)}")
+    print(f"[kernels] K1 by launch (torch.profiler, {calls} calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
+    return split
+
+
+def library_log_mel_ms(x, cfg, ref32):
+    """The standardized log-mel as a composition of library calls, not one
+    call: torch.stft (cuFFT; centre reflect pad, periodic Hann) → |X|² →
+    the filterbank's torch.matmul → dB with the top_db clamp → standardize.
+    Checked against the float32 factored front end (the same function to
+    float32 rounding); → its median time in ms."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.ops import melspec
+
+    fb_t = torch.as_tensor(melspec.config_filterbank(cfg, SR).T.copy()).cuda()  # [n_mels, bins]
+    window = torch.hann_window(cfg.n_fft, periodic=True, device="cuda")
+
+    def library():
+        spec = torch.stft(x, cfg.n_fft, cfg.hop_length, window=window, center=True,
+                          pad_mode=cfg.pad_mode, return_complex=True)
+        mel = torch.matmul(fb_t, spec.real.square() + spec.imag.square())
+        return melspec.standardize(melspec.amplitude_to_db(mel, cfg.top_db), cfg.eps)
+
+    got = library()
+    torch.cuda.synchronize()
+    err = float((got - ref32).abs().max())
+    ms = median_ms(library)
+    print(f"[kernels] K1/K2's function as library calls (torch.stft → |X|² → filterbank matmul → "
+          f"dB → standardize): {ms:.4f} ms, max|library - float32 factored| {err:.3g} (≤ 1e-3)",
+          flush=True)
+    check(err <= 1e-3, "the library composition disagrees with the float32 front end")
+    return ms
 
 
 def check_k2(k2, k1, cfg):
@@ -1033,7 +1107,11 @@ def main() -> int:
         "plain_ms": z["plain_ms"],
         "bound_ms": k1_bound,
         "bound_by": k1_by,
-        "library_ms": None,
+        "bound_share": k1_bound / z["ms"],
+        "dft_halo_factor": k1_report["dft_halo_factor"],
+        "launch_ms": k1_report["launch_ms"],
+        "library_ms": k1_report["library_ms"],
+        "library": LIBRARY_LOG_MEL,
         "lowp_tail_max_abs_err": z["lowp"]["err"],
         "lowp_tail_max_abs_err_db": k1_report[False]["lowp"]["err"],
         "lowp_tail_one_ulp_share": z["lowp"]["one_ulp_share"],
@@ -1058,7 +1136,8 @@ def main() -> int:
         "plain_ms": k2_report["plain_ms"],
         "bound_ms": k2_report["bound"][0],
         "bound_by": k2_report["bound"][1],
-        "library_ms": None,
+        "library_ms": k1_report["library_ms"],
+        "library": LIBRARY_LOG_MEL,
         "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
     }]
     conv_launches = path_launches[conv.name]

@@ -63,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma_sm90.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -79,60 +80,6 @@ struct Params {
     int th, tw_log2;                      // the M tile: th × 2^tw_log2 pixels
     int tiles_h, tiles_w, tiles_n, tiles;  // tile grid: B × tiles_h × tiles_w × tiles_n
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Spin until the phase of parity `parity` of the barrier has completed. A
-// wait of more than about ten seconds is a fault: it traps, so the launch
-// fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-    uint32_t done = 0;
-    const long long t0 = clock64();
-    while (!done) {
-        if (clock64() - t0 > 20000000000LL) __trap();
-        asm volatile(
-            "{\n.reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(bar), "r"(parity)
-            : "memory");
-    }
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-        : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-        : "memory");
-}
 
 struct Tile {
     int b, ti, tj, n0;
@@ -167,7 +114,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
     using S = Shape<MSUB, BN>;
     extern __shared__ uint8_t smem_raw[];
     // 128-byte swizzle repeats every 1024 bytes of shared address
-    const uint32_t raw = smem_u32(smem_raw);
+    const uint32_t raw = sad::smem_u32(smem_raw);
     const uint32_t ring = (raw + 1023u) & ~1023u;
     const uint32_t full = ring + STAGES * S::STAGE_BYTES;  // STAGES barriers, then STAGES "empty"
     const uint32_t empty = full + STAGES * 8;
@@ -176,8 +123,8 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
 
     if (threadIdx.x == 0) {
         for (int s = 0; s < STAGES; ++s) {
-            mbar_init(full + 8 * s, 1);   // the producer's arrive + the TMA bytes
-            mbar_init(empty + 8 * s, 2);  // one arrive per consumer warpgroup
+            sad::mbar_init(full + 8 * s, 1);   // the producer's arrive + the TMA bytes
+            sad::mbar_init(empty + 8 * s, 2);  // one arrive per consumer warpgroup
         }
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
@@ -198,12 +145,12 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
                 for (int dy = 0; dy < 3; ++dy) {
                     for (int dx = 0; dx < 3; ++dx) {
                         for (int c0 = 0; c0 < p.C; c0 += 64) {
-                            mbar_wait(empty + 8 * stage, phase ^ 1);
-                            mbar_expect_tx(full + 8 * stage, S::STAGE_BYTES);
-                            tma_load_4d(a_tile(stage), &tmap_x, full + 8 * stage, c0, x0 + dx,
-                                        y0 + dy, tile.b);
-                            tma_load_3d(b_tile(stage), &tmap_w, full + 8 * stage, c0, 3 * dy + dx,
-                                        tile.n0);
+                            sad::mbar_wait(empty + 8 * stage, phase ^ 1);
+                            sad::mbar_expect_tx(full + 8 * stage, S::STAGE_BYTES);
+                            sad::tma_load_4d(a_tile(stage), &tmap_x, full + 8 * stage, c0,
+                                             x0 + dx, y0 + dy, tile.b);
+                            sad::tma_load_3d(b_tile(stage), &tmap_w, full + 8 * stage, c0,
+                                             3 * dy + dx, tile.n0);
                             if (++stage == STAGES) {
                                 stage = 0;
                                 phase ^= 1;
@@ -228,7 +175,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
                 for (int i = 0; i < BN / 2; ++i) acc[ms][i] = 0.f;
             int prev = -1;
             for (int k = 0; k < ksteps; ++k) {
-                mbar_wait(full + 8 * stage, phase);
+                sad::mbar_wait(full + 8 * stage, phase);
                 const uint32_t a = a_tile(stage) + cw * MSUB * 64 * ROW_BYTES;
                 const uint32_t b = b_tile(stage);
                 sad::wgmma_fence();
@@ -243,7 +190,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
                 sad::wgmma_commit();
                 // the previous step's products have retired: hand its stage back
                 sad::wgmma_wait<1>();
-                if (prev >= 0 && signaller) mbar_arrive(empty + 8 * prev);
+                if (prev >= 0 && signaller) sad::mbar_arrive(empty + 8 * prev);
                 prev = stage;
                 if (++stage == STAGES) {
                     stage = 0;
@@ -251,7 +198,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
                 }
             }
             sad::wgmma_wait<0>();
-            if (signaller) mbar_arrive(empty + 8 * prev);
+            if (signaller) sad::mbar_arrive(empty + 8 * prev);
 #pragma unroll
             for (int ms = 0; ms < MSUB; ++ms)
 #pragma unroll
@@ -299,41 +246,6 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
             }
         }
     }
-}
-
-// cuTensorMapEncodeTiled and cuGetErrorName through the CUDA runtime's
-// entry-point lookup, so the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-typedef CUresult (*GetErrorName)(CUresult, const char**);
-
-void* driver_fn(const char* name) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-        return nullptr;
-#else
-    if (cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-        return nullptr;
-#endif
-    return fn;
-}
-
-// A bf16 tensor map with 128-byte swizzle and zero fill outside the tensor.
-int encode(CUtensorMap* map, int rank, const void* base, const cuuint64_t* dims,
-           const cuuint64_t* strides, const cuuint32_t* box, const cuuint32_t* elem_strides) {
-    static EncodeTiled fn = reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
-    if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
-    const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                          dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
 
 template <int MSUB, int BN, bool OUT_F32>
@@ -407,14 +319,14 @@ extern "C" int sad_conv3x3_wgmma(const void* x, const void* w, const void* scale
                                      (cuuint64_t)H * W * C * 2};
     const cuuint32_t x_box[4] = {64, (cuuint32_t)(tw * stride), (cuuint32_t)(th * stride), 1};
     const cuuint32_t x_elem[4] = {1, (cuuint32_t)stride, (cuuint32_t)stride, 1};
-    int rc = encode(&tmap_x, 4, x, x_dims, x_strides, x_box, x_elem);
+    int rc = sad::encode_bf16_sw128(&tmap_x, 4, x, x_dims, x_strides, x_box, x_elem);
     if (rc != 0) return rc;
     // w as [F][9][C], K-major; the box is one tap's 64 channels of BN filters
     const cuuint64_t w_dims[3] = {(cuuint64_t)C, 9, (cuuint64_t)F};
     const cuuint64_t w_strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)9 * C * 2};
     const cuuint32_t w_box[3] = {64, 1, (cuuint32_t)BN};
     const cuuint32_t w_elem[3] = {1, 1, 1};
-    rc = encode(&tmap_w, 3, w, w_dims, w_strides, w_box, w_elem);
+    rc = sad::encode_bf16_sw128(&tmap_w, 3, w, w_dims, w_strides, w_box, w_elem);
     if (rc != 0) return rc;
 
     int dev = 0, sms = 0;
@@ -429,11 +341,4 @@ extern "C" int sad_conv3x3_wgmma(const void* x, const void* w, const void* scale
 
 // The text of a code that sad_conv3x3_wgmma returned: a cudaError_t, or
 // −CUresult from encoding a tensor map.
-extern "C" const char* sad_conv_error_string(int code) {
-    if (code >= 0) return cudaGetErrorString(static_cast<cudaError_t>(code));
-    static GetErrorName fn = reinterpret_cast<GetErrorName>(driver_fn("cuGetErrorName"));
-    const char* name = nullptr;
-    if (fn == nullptr || fn(static_cast<CUresult>(-code), &name) != CUDA_SUCCESS || !name)
-        return "cuTensorMapEncodeTiled failed";
-    return name;
-}
+extern "C" const char* sad_conv_error_string(int code) { return sad::error_string(code); }

@@ -8,9 +8,18 @@ log-mel, or the clamped dB with ``standardize=False``; float32, or with
 
 For a tensor on the CPU the wrapper runs the plain version,
 ``ops.melspec.log_mel_factored`` at bf16 DFT precision. For a CUDA tensor it
-launches the kernel or raises; it never falls back. The reflect pad and the
-int16 dequantisation are plain tensor ops here; the kernel starts at the
-padded signal.
+launches the kernel or raises; it never falls back. The kernel starts at the
+float32 or int16 waveforms: the reflect pad, the int16 dequantisation and
+the rounding to bf16 are its first launch.
+
+The kernel's host tables are plain functions here, so the CPU tests can hold
+its decomposition against the plain version: ``dft_rows`` (the interleaved
+cos|sin with the mirror and guard bins), ``band_plan`` (which bins and mels
+each block's band takes), ``band_tables`` (each band's mel product as two
+running sums) and ``row_tiles`` (the tiles of hop blocks); ``work`` counts
+the operations of a call. The tile and band sizes are the kernel's
+compile-time constants: the wrapper passes its own to the kernel, which
+refuses a call planned for other sizes.
 """
 
 from __future__ import annotations
@@ -28,7 +37,14 @@ from synthetic_audio_detection_tpu_torch.ops import build, melspec
 SOURCE = "synthetic_audio_detection_tpu_torch/csrc/melspec_factored.cu"
 REPLACES = "synthetic_audio_detection_tpu/ops/pallas_melspec.py:169"
 
-_NCP_ALIGN = 64  # cos | sin columns padded so 2·ncp is a multiple of the 128-column tile
+# csrc/melspec_factored.cu: a tile is 128 hop blocks, and yields the 125
+# frames that start in it (a frame reads 4 blocks); a band is 128 bins, f0 − 1
+# … f0 + 126, and has power for the 126 inner ones
+TILE_ROWS = 128
+TILE_FRAMES = TILE_ROWS - 3
+BAND_BINS = 128
+BAND_OUT_BINS = BAND_BINS - 2
+KSTEP = 64  # hop must be a multiple of the kernel's K-step
 
 # Two lowp_tail results from the same bf16 DFT operands (kernel and plain
 # version, or the port and the reference) round the same float32 powers to
@@ -51,10 +67,6 @@ def lowp_tail_tolerance(plain: torch.Tensor, db_std: Optional[torch.Tensor] = No
     return 2.0 ** -7 * plain.float().abs() + 2.0 ** -9 + straddle
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
 def dequantize(waveforms: torch.Tensor) -> torch.Tensor:
     """int16 PCM transport → float32 in [-1, 1); float32 passes through."""
     if waveforms.dtype == torch.int16:
@@ -62,6 +74,112 @@ def dequantize(waveforms: torch.Tensor) -> torch.Tensor:
     if waveforms.dtype != torch.float32:
         raise TypeError(f"waveforms must be float32 or int16, got {waveforms.dtype}")
     return waveforms
+
+
+def geometry(T: int, cfg: SpectrogramConfig) -> Tuple[int, int]:
+    """(hop blocks nb, frames) of a window of T samples, as
+    ``melspec.factored_blocks`` cuts it: T + n_fft samples after the centre
+    pad, zero-padded to a hop multiple."""
+    hop = cfg.hop_length
+    return -(-(T + cfg.n_fft) // hop), 1 + T // hop
+
+
+def dft_rows(n_fft: int, hop: int, n_sig: int) -> np.ndarray:
+    """The kernel's B operand, [2·(n_sig + 2), hop] float32: row 2·(f + 1)
+    the cos of bin f over a hop block's samples, row 2·(f + 1) + 1 its sin,
+    for bins f = −1 … n_sig. Bin −1 is conj(bin 1), so the Hann tap
+    X[−1] = conj(X[1]) is an ordinary column; bin n_sig is the guard bin
+    of the last bin's X[f + 1] tap."""
+    cos_m, sin_m = melspec._dft_matrices(n_fft, n_sig + 1)
+    rows = np.empty((2 * (n_sig + 2), hop), np.float32)
+    rows[0], rows[1] = cos_m[:hop, 1], -sin_m[:hop, 1]
+    rows[2::2] = cos_m[:hop].T
+    rows[3::2] = sin_m[:hop].T
+    return rows
+
+
+def band_plan(lo: np.ndarray, off: np.ndarray, width: int = BAND_OUT_BINS
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Bands of ``width`` bins such that each mel's whole span (``lo``,
+    ``off`` of ``melspec.sparse_columns``) lies in the band that owns it:
+    → (f0 [bands], the first bin of each band; edges [bands + 1], band k
+    owning mels edges[k] … edges[k + 1] − 1), int32. Greedy in mel order: a
+    band starts at its first mel's first bin, moved down to f0 ≡ 1 (mod 4)
+    so that bin f0 − 1 + j has the phases of j mod 4, and takes the
+    following mels while they fit. A mel without weights, or wider than a
+    band, raises."""
+    spans = np.diff(off)
+    if not spans.all():
+        raise ValueError(f"mel {int(np.argmin(spans))} has no filterbank weight")
+    f0s, edges = [], [0]
+    m, n = 0, len(lo)
+    while m < n:
+        start = int(lo[m]) - (int(lo[m]) - 1) % 4
+        k = m
+        while k < n and start <= lo[k] and lo[k] + spans[k] <= start + width:
+            k += 1
+        if k == m:
+            raise ValueError(f"mel {m} spans {spans[m]} bins, more than a band's {width}")
+        f0s.append(start)
+        edges.append(k)
+        m = k
+    return np.asarray(f0s, np.int32), np.asarray(edges, np.int32)
+
+
+def band_tables(lo: np.ndarray, off: np.ndarray, w: np.ndarray, f0: np.ndarray,
+                edges: np.ndarray) -> Dict[str, np.ndarray]:
+    """The mel product of each band as two running sums over its bins, one
+    for its even and one for its odd mels (a triangle's support ends where
+    the next but one begins, so the mels of one parity never share a bin):
+    ``weights`` [bands, 2, BAND_BINS] float32, the weight of local bin j
+    (bin f0 − 1 + j) in the parity's mel there, or 0; ``ends`` [bands, 2,
+    BAND_BINS] int32, the mel whose last bin j is, or −1; ``quads`` [bands,
+    2, 2] int32, the parity's first and past-last group of 4 local bins.
+    Mels of one parity that share a bin raise."""
+    n_bands = len(f0)
+    weights = np.zeros((n_bands, 2, BAND_BINS), np.float32)
+    ends = np.full((n_bands, 2, BAND_BINS), -1, np.int32)
+    quads = np.zeros((n_bands, 2, 2), np.int32)
+    for k in range(n_bands):
+        for m in range(edges[k], edges[k + 1]):
+            j = np.arange(lo[m], lo[m] + off[m + 1] - off[m]) - f0[k] + 1
+            if np.any(weights[k, m % 2, j]):
+                raise ValueError(f"mel {m} shares a bin with another mel of its parity")
+            weights[k, m % 2, j] = w[off[m]:off[m + 1]]  # nonzero over the whole span
+            ends[k, m % 2, j[-1]] = m
+        for par in range(2):
+            used = np.nonzero(weights[k, par])[0]
+            if used.size:
+                quads[k, par] = (used[0] // 4, used[-1] // 4 + 1)
+    return {"weights": weights, "ends": ends, "quads": quads}
+
+
+def row_tiles(n_windows: int, nb: int, n_frames: int) -> int:
+    """Tiles of TILE_ROWS hop blocks, TILE_FRAMES apart over all windows'
+    blocks back to back, that hold the first block of every frame."""
+    return -(-((n_windows - 1) * nb + n_frames) // TILE_FRAMES)
+
+
+def work(c: Dict[str, torch.Tensor], cfg: SpectrogramConfig, n_windows: int, T: int
+         ) -> Dict[str, float]:
+    """Operations (two a multiply-add) of one call at [n_windows, T], for
+    the constants ``c`` of ``FactoredMelKernel.constants``: ``dft_min`` and
+    ``mel_min``, what the function needs (each hop block against bins 0 …
+    n_sig, the last the guard bin; one multiply-add a frame per filterbank
+    nonzero), and ``dft`` and ``mel``, what this tiling does (every tile
+    against every band, the tiles' 3-block and the bands' 2-bin halos
+    included; each parity's running sum over whole groups of 4 bins)."""
+    hop = cfg.hop_length
+    nb, n_frames = geometry(T, cfg)
+    n_bins = c["cs"].shape[0] // 2 - 1  # the table's bins but the mirror bin −1
+    steps = 4 * int((c["quads"][..., 1] - c["quads"][..., 0]).sum())
+    return {
+        "dft_min": 2.0 * n_windows * nb * hop * 2 * n_bins,
+        "mel_min": 2.0 * n_windows * n_frames * int(torch.count_nonzero(c["weights"])),
+        "dft": 2.0 * row_tiles(n_windows, nb, n_frames) * TILE_ROWS * c["f0"].numel()
+               * 2 * BAND_BINS * hop,
+        "mel": 2.0 * n_windows * n_frames * steps,
+    }
 
 
 class FactoredMelKernel:
@@ -74,14 +192,14 @@ class FactoredMelKernel:
     def __init__(self) -> None:
         self.launches = 0
         self._lib = None
-        self._consts: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, int, int]] = {}
+        self._consts: Dict[Tuple, Dict[str, torch.Tensor]] = {}
 
     def load(self) -> ctypes.CDLL:
         """Build (at first use) and bind the library."""
         if self._lib is None:
             lib = build.load(self.name)
             lib.sad_melspec_factored.argtypes = (
-                [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                 + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
             lib.sad_melspec_factored.restype = ctypes.c_int
             lib.sad_cuda_error_string.argtypes = [ctypes.c_int]
@@ -89,30 +207,29 @@ class FactoredMelKernel:
             self._lib = lib
         return self._lib
 
-    def _constants(self, cfg: SpectrogramConfig, sample_rate: int, device: torch.device):
-        """(cos|sin transposed [2·ncp, hop] bf16, filterbank [n_sig, n_mels]
-        f32, ncp, n_sig) on ``device``, built once per configuration. Keyed
-        on the fields they depend on, so any object with a
-        SpectrogramConfig's attributes shares one entry with an equal
+    def constants(self, cfg: SpectrogramConfig, sample_rate: int,
+                  device: torch.device) -> Dict[str, torch.Tensor]:
+        """On ``device``, built once per configuration: ``cs`` (``dft_rows``,
+        bf16), the bands' ``f0`` (``band_plan``) and their mel tables
+        (``band_tables``: ``weights``, the same rounded to bf16 as
+        ``weights_lowp``, ``ends``, ``quads``), over the filterbank's
+        significant bins. Keyed on the fields they depend on, so any object
+        with a SpectrogramConfig's attributes shares one entry with an equal
         config."""
         key = (cfg.n_fft, cfg.hop_length, cfg.n_mels, cfg.f_min, cfg.f_max, cfg.mel_norm,
                cfg.mel_scale, sample_rate, str(device))
         if key not in self._consts:
             fb = melspec.config_filterbank(cfg, sample_rate)
             n_sig = melspec.significant_bins(fb)
-            nraw = n_sig + 1  # guard bin for the f+1 Hann tap
-            ncp = _round_up(nraw, _NCP_ALIGN)
-            cos_m, sin_m = melspec._dft_matrices(cfg.n_fft, nraw)
-            hop = cfg.hop_length
-            cs_t = np.zeros((2 * ncp, hop), np.float32)
-            cs_t[:nraw] = cos_m[:hop].T
-            cs_t[ncp : ncp + nraw] = sin_m[:hop].T
-            self._consts[key] = (
-                torch.as_tensor(cs_t).to(device=device, dtype=torch.bfloat16).contiguous(),
-                torch.as_tensor(np.ascontiguousarray(fb[:n_sig])).to(device),
-                ncp,
-                n_sig,
-            )
+            lo, off, w = melspec.sparse_columns(fb[:n_sig])
+            f0, edges = band_plan(lo, off)
+            tables = band_tables(lo, off, w, f0, edges)
+            c = {k: torch.as_tensor(v).to(device) for k, v in tables.items()}
+            c["weights_lowp"] = c["weights"].to(torch.bfloat16).float()
+            c["f0"] = torch.as_tensor(f0).to(device)
+            c["cs"] = torch.as_tensor(dft_rows(cfg.n_fft, cfg.hop_length, n_sig)).to(
+                device=device, dtype=torch.bfloat16).contiguous()
+            self._consts[key] = c
         return self._consts[key]
 
     def __call__(self, waveforms: torch.Tensor, cfg: SpectrogramConfig,
@@ -122,28 +239,36 @@ class FactoredMelKernel:
             raise ValueError(f"the kernel takes CUDA tensors, got {waveforms.device}")
         if waveforms.ndim != 2:
             raise ValueError(f"waveforms must be [B, T], got {tuple(waveforms.shape)}")
-        if cfg.n_fft != 4 * cfg.hop_length:
-            raise ValueError("the kernel's combine phases need n_fft == 4·hop_length")
+        if waveforms.dtype not in (torch.float32, torch.int16):
+            raise TypeError(f"waveforms must be float32 or int16, got {waveforms.dtype}")
+        hop = cfg.hop_length
+        if cfg.n_fft != 4 * hop or hop % KSTEP:
+            raise ValueError(f"the kernel needs n_fft == 4·hop_length and hop_length a multiple "
+                             f"of {KSTEP}, got {cfg.n_fft} and {hop}")
+        if cfg.win != cfg.n_fft or not cfg.center or cfg.pad_mode != "reflect":
+            raise ValueError("the kernel takes win == n_fft, center and the reflect pad")
         if cfg.power != 2.0:
             raise ValueError("the kernel computes the power-2 spectrogram")
-        x = dequantize(waveforms)
-        blocks, n_frames = melspec.factored_blocks(x, cfg)  # [B, nb, hop], contiguous
-        if not blocks.is_contiguous():
-            raise ValueError("padded waveforms must be contiguous")
-        B, nb, hop = blocks.shape
-        cs_t, fb, ncp, n_sig = self._constants(cfg, sample_rate, x.device)
+        x = waveforms.contiguous()
+        B, T = x.shape
+        nb, n_frames = geometry(T, cfg)
         n_mels = cfg.n_mels
-        y = torch.empty((B * nb, 2 * ncp), dtype=torch.float32, device=x.device)
+        if T <= cfg.n_fft // 2 or n_mels * n_frames > 32_768:
+            raise ValueError(f"the kernel takes windows of more than n_fft/2 samples and at most "
+                             f"32,768 cells a plane, got T={T} ({n_mels}×{n_frames})")
+        c = self.constants(cfg, sample_rate, x.device)
+        blocks = torch.empty((B * nb, hop), dtype=torch.bfloat16, device=x.device)
         mel = torch.empty((B, n_mels, n_frames), dtype=torch.float32, device=x.device)
         out = torch.empty_like(mel, dtype=torch.bfloat16 if lowp_tail else torch.float32)
         lib = self.load()
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        ptrs = [c["cs"], c["f0"], c["weights_lowp" if lowp_tail else "weights"], c["ends"],
+                c["quads"], blocks, mel, out]
         rc = lib.sad_melspec_factored(
-            ctypes.c_void_p(blocks.data_ptr()), ctypes.c_void_p(cs_t.data_ptr()),
-            ctypes.c_void_p(fb.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            ctypes.c_void_p(mel.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            B, nb, hop, ncp, n_frames, n_sig, n_mels,
-            float(cfg.top_db), float(cfg.eps), int(standardize), int(lowp_tail),
+            ctypes.c_void_p(x.data_ptr()), int(x.dtype == torch.int16),
+            *(ctypes.c_void_p(t.data_ptr()) for t in ptrs),
+            B, T, cfg.n_fft, hop, nb, n_frames, c["f0"].numel(), c["cs"].shape[0], n_mels,
+            BAND_BINS, TILE_ROWS, float(cfg.top_db), float(cfg.eps), int(standardize), int(lowp_tail),
             ctypes.c_void_p(stream))
         if rc != 0:
             msg = lib.sad_cuda_error_string(rc).decode()

@@ -29,23 +29,6 @@ SOURCE = "synthetic_audio_detection_tpu_torch/csrc/melspec_strip.cu"
 REPLACES = "synthetic_audio_detection_tpu/ops/pallas_melspec.py:69"
 
 
-def sparse_columns(fb: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The filterbank [n_bins, n_mels] as spans: mel m sums bins lo[m] + j
-    with weights w[off[m] + j] for j < off[m + 1] − off[m], the span from
-    its first to its last nonzero weight (a triangle's support, so the
-    weights inside are nonzero too). → (lo int32, off int32, w float32)."""
-    lo = np.zeros(fb.shape[1], np.int32)
-    off = np.zeros(fb.shape[1] + 1, np.int32)
-    spans = []
-    for m in range(fb.shape[1]):
-        nz = np.nonzero(fb[:, m])[0]
-        span = fb[nz[0]:nz[-1] + 1, m] if nz.size else fb[:0, m]
-        lo[m] = nz[0] if nz.size else 0
-        off[m + 1] = off[m] + span.size
-        spans.append(span)
-    return lo, off, np.concatenate(spans).astype(np.float32)
-
-
 class StripMelKernel:
     """Launches the kernel and counts its launches (``launches``, one per
     call that runs the kernel; the plain version on the CPU does not
@@ -76,7 +59,7 @@ class StripMelKernel:
         """On ``device``, built once per configuration: ``hann`` [n_fft]
         float32, ``cs`` [2·n_bins, n_fft] bf16 (row 2f the cos of bin f, row
         2f + 1 its sin), and the filterbank's spans ``lo``, ``off``, ``w``
-        (``sparse_columns``). Keyed on the fields they depend on."""
+        (``melspec.sparse_columns``). Keyed on the fields they depend on."""
         key = (cfg.n_fft, cfg.n_mels, cfg.f_min, cfg.f_max, cfg.mel_norm, cfg.mel_scale,
                sample_rate, str(device))
         if key not in self._consts:
@@ -86,7 +69,7 @@ class StripMelKernel:
             cs = np.empty((2 * n_bins, cfg.n_fft), np.float32)
             cs[0::2] = cos_m.T
             cs[1::2] = sin_m.T
-            lo, off, w = sparse_columns(fb)
+            lo, off, w = melspec.sparse_columns(fb)
             self._consts[key] = {
                 "hann": torch.as_tensor(melspec.hann_window(cfg.n_fft)).to(device),
                 "cs": torch.as_tensor(cs).to(device=device, dtype=torch.bfloat16).contiguous(),

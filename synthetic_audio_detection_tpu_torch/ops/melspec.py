@@ -122,6 +122,23 @@ def strip_filterbank(fb: np.ndarray) -> np.ndarray:
     return out
 
 
+def sparse_columns(fb: np.ndarray) -> tuple:
+    """The filterbank [n_bins, n_mels] as spans: mel m sums bins lo[m] + j
+    with weights w[off[m] + j] for j < off[m + 1] − off[m], the span from
+    its first to its last nonzero weight (a triangle's support, so the
+    weights inside are nonzero too). → (lo int32, off int32, w float32)."""
+    lo = np.zeros(fb.shape[1], np.int32)
+    off = np.zeros(fb.shape[1] + 1, np.int32)
+    spans = []
+    for m in range(fb.shape[1]):
+        nz = np.nonzero(fb[:, m])[0]
+        span = fb[nz[0]:nz[-1] + 1, m] if nz.size else fb[:0, m]
+        lo[m] = nz[0] if nz.size else 0
+        off[m + 1] = off[m] + span.size
+        spans.append(span)
+    return lo, off, np.concatenate(spans).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=8)
 def _dft_matrices(n_fft: int, n_cols: int) -> tuple:
     """Real/imag DFT matrices [n_fft, n_cols] float32."""

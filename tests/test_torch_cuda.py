@@ -93,6 +93,119 @@ def test_factored_mel_kernel_lowp_tail_matches_plain_version(standardize):
     assert bool(((got.float() - ref.float()).abs() <= tol).all())
 
 
+K1_MODES = {"z": (True, False), "dB": (False, False), "z-lowp": (True, True),
+            "dB-lowp": (False, True)}  # (standardize, lowp_tail)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(K1_MODES))
+@pytest.mark.parametrize("pcm", [False, True])
+@pytest.mark.parametrize("batch,samples", [(1, 127_700), (5, 127_700), (5, 128_000),
+                                           (128, 128_000)])
+def test_factored_mel_kernel_at_serving_batches(batch, samples, pcm, mode):
+    """The kernel against its plain version on float32 and int16 windows, at
+    a window length that is not a multiple of hop (a zero tail after the
+    reflect pad) and at the serving batch: 1e-3 on z-scores and 1e-2 dB
+    (summation order), and under lowp_tail the bound of two bf16 mel
+    products (cuda_melspec.lowp_tail_tolerance)."""
+    _cuda_or_skip()
+    standardize, lowp_tail = K1_MODES[mode]
+    x = _waves(batch, samples, seed=8)
+    if pcm:
+        x = torch.round(x * 32768).clamp(-32768, 32767).to(torch.int16)
+    before = cuda_melspec.KERNEL.launches
+    got = cuda_melspec.fused_log_mel_factored(x, CFG, standardize=standardize,
+                                              lowp_tail=lowp_tail)
+    ref = melspec.log_mel_factored(cuda_melspec.dequantize(x), CFG, standardize=standardize,
+                                   dft_dtype=torch.bfloat16, lowp_tail=lowp_tail)
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 1
+    assert got.shape == ref.shape == (batch, 128, 1 + samples // 512) and got.dtype == ref.dtype
+    if lowp_tail:
+        db_std = melspec.log_mel_factored(cuda_melspec.dequantize(x), CFG,
+                                          standardize=False).std(dim=(1, 2))
+        tol = cuda_melspec.lowp_tail_tolerance(ref, db_std if standardize else None)
+        assert bool(((got.float() - ref.float()).abs() <= tol).all())
+    else:
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 if standardize else 1e-2)
+
+
+@pytest.mark.cuda
+def test_factored_mel_kernel_is_deterministic_in_every_mode():
+    _cuda_or_skip()
+    x = _waves(128, 128_000, seed=9)
+    for standardize, lowp_tail in K1_MODES.values():
+        a = cuda_melspec.fused_log_mel_factored(x, CFG, standardize=standardize,
+                                                lowp_tail=lowp_tail)
+        assert torch.equal(a, cuda_melspec.fused_log_mel_factored(
+            x, CFG, standardize=standardize, lowp_tail=lowp_tail))
+
+
+@pytest.mark.cuda
+def test_factored_mel_kernel_mirrors_bin_minus_one(monkeypatch):
+    """A mel that weighs bin 0 (none of the triangular filterbanks does)
+    starts its band at f0 = −3: the cos|sin box begins 6 rows before the
+    table, which the TMA fills with zeros, and bin −1 is conj(bin 1)."""
+    _cuda_or_skip()
+    config_filterbank = melspec.config_filterbank
+
+    def with_bin_0(cfg, sample_rate):
+        fb = config_filterbank(cfg, sample_rate).copy()
+        fb[0, 0] = fb[1:, 0].max()
+        return fb
+
+    monkeypatch.setattr(melspec, "config_filterbank", with_bin_0)
+    kernel = cuda_melspec.FactoredMelKernel()  # tables of this filterbank, not the cached ones
+    assert int(kernel.constants(CFG, 32_000, torch.device("cuda"))["f0"][0]) == -3
+    x = _waves(3, 32_000, seed=11)
+    got = kernel(x, CFG)
+    ref = melspec.log_mel_factored(x, CFG, dft_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_factored_mel_kernel_scratch_is_mel_sized():
+    """At [128, 128000] one call allocates, beyond its input and output,
+    the bf16 hop blocks (33.3 MB) and the float32 mel plane (16.4 MB): no
+    float32 [B·nb, 2·bins] scratch (216 MB in the kernel's first design)."""
+    _cuda_or_skip()
+    x = _waves(128, 128_000, seed=10)
+    cuda_melspec.fused_log_mel_factored(x, CFG)  # build, constants
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = cuda_melspec.fused_log_mel_factored(x, CFG)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+    assert scratch < 100e6, scratch
+
+
+@pytest.mark.cuda
+def test_factored_mel_kernel_raises_instead_of_falling_back():
+    _cuda_or_skip()
+    with pytest.raises(TypeError):
+        cuda_melspec.fused_log_mel_factored(_waves(1, 32_000).double(), CFG)
+    with pytest.raises(ValueError, match="32,768 cells"):
+        cuda_melspec.fused_log_mel_factored(_waves(1, 32_000 * 9), CFG)  # 563 frames
+    with pytest.raises(ValueError, match="n_fft == 4"):
+        cuda_melspec.fused_log_mel_factored(_waves(1, 32_000),
+                                            SpectrogramConfig(mel_norm="slaney", hop_length=256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size", [("BAND_BINS", 136), ("TILE_ROWS", 64)])
+def test_factored_mel_kernel_refuses_a_plan_for_other_sizes(monkeypatch, name, size):
+    """The host plans bands and tiles with its own sizes and passes them to
+    the kernel, which refuses any but its compile-time ones."""
+    _cuda_or_skip()
+    monkeypatch.setattr(cuda_melspec, name, size)
+    kernel = cuda_melspec.FactoredMelKernel()  # tables of these sizes, not the cached ones
+    with pytest.raises(RuntimeError, match="melspec_factored launch failed"):
+        kernel(_waves(1, 32_000), CFG)
+    assert kernel.launches == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch,samples", [(2, 32_000), (3, 128_000), (128, 128_000)])
 def test_strip_mel_kernel_matches_plain_version(batch, samples):

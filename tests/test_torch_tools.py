@@ -12,7 +12,9 @@ from synthetic_audio_detection_tpu_torch.tools import profile_serving as P
     ("void (anonymous namespace)::conv3x3_kernel<false>(...)", "conv kernel (K3)"),
     ("void (anonymous namespace)::conv3x3_wgmma_kernel<2, 64, false>(CUtensorMap_st, "
      "CUtensorMap_st, (anonymous namespace)::Params)", "conv kernel (K3)"),
-    ("block_dft_kernel", "K1 log-mel kernel"),
+    ("void (anonymous namespace)::pad_bf16_kernel<float>(...)", "K1 log-mel kernel"),
+    ("(anonymous namespace)::dft_mel_kernel(CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::Params)", "K1 log-mel kernel"),
     ("void (anonymous namespace)::db_standardize_kernel<__nv_bfloat16>(...)", "K1 log-mel kernel"),
     ("(anonymous namespace)::strip_dft_power_kernel(...)", "K2 log-mel kernel"),
     ("(anonymous namespace)::strip_mel_tail_kernel(...)", "K2 log-mel kernel"),
@@ -41,3 +43,4 @@ def test_profile_script_needs_a_gpu(capsys):
         pytest.skip("a CUDA device is present")
     assert P.main([]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
+
