@@ -22,9 +22,14 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
              same function as a composition of library calls (torch.stft →
              |X|² → filterbank matmul → dB → standardize), the yardstick of
              K1 and K2;
-           - K2, the strip log-mel kernel, on the same windows: against its
-             plain version, against the float32 GEMM front end within the
-             reference's bound, and against K1;
+           - K2, the strip log-mel kernel (Hann-weighted bf16 strips;
+             wgmma DFT fed by TMA, tiles of one band in a cluster sharing
+             the cos|sin loads, with the power and the sparse mel product in
+             its epilogue; the tail), on the same windows: against its plain
+             version, against the float32 GEMM front end within the
+             reference's bound, against K1, and against itself (identical
+             bits across runs); its device time split by launch
+             (torch.profiler);
            - the 3x3 conv + BN + ReLU kernel (K3-K6, wgmma fed by a TMA
              ring) at the seven 3x3 conv shapes of ResNet-18 at 512² input
              and batch 128 and at its three 1x1 downsamples (the 1x1 weight
@@ -35,7 +40,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
              stem on one plane and on three channels against the BN-folded
              bf16 cuDNN stem;
            - P1-P3, the helper probes' kernel, at the Pallas shapes on
-             seeded numpy bf16 inputs.
+             seeded numpy bf16 inputs, with their device time
+             (torch.profiler) beside the event time, and the same for the
+             library calls.
 4. front   the mel-only front end as the reference's benchmark drives it:
            fused_log_mel (K2) → finalize_features → bf16 on 128 seeded 4-s
            windows at out_size 512, 256 and 0 (native), counts zeroed
@@ -391,32 +398,41 @@ def check_k1(k1, cfg):
           flush=True)
     report["bound"] = (b_ms, b_by)
     report["dft_halo_factor"] = w["dft"] / w["dft_min"]
-    report["launch_ms"] = k1_launch_ms(k1, x, cfg)
+    report["launch_ms"] = launch_ms("K1", lambda: k1(x, cfg),
+                                    ("pad_bf16_kernel", "dft_mel_kernel", "db_standardize_kernel"))
     report["library_ms"] = library_log_mel_ms(x, cfg, z["ref32"])
     return report
 
 
-def k1_launch_ms(k1, x, cfg, calls: int = 10):
-    """K1's device time per call split by launch, from torch.profiler over
-    ``calls`` calls after warm-up: {kernel name: ms per call}."""
+def device_ms(fn, names=(), calls: int = 10):
+    """Device time per call of ``fn`` from torch.profiler over ``calls``
+    calls after warm-up, by kernel: {name: ms per call}, a kernel whose name
+    contains one of ``names`` counted under that name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        k1(x, cfg)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            k1(x, cfg)
+            fn()
         torch.cuda.synchronize()
     split = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = next((k for k in ("pad_bf16_kernel", "dft_mel_kernel", "db_standardize_kernel")
-                         if k in e.name), e.name)
+            name = next((k for k in names if k in e.name), e.name)
             split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
-    check(len(split) == 3, f"K1's three launches in the profile: {sorted(split)}")
-    print(f"[kernels] K1 by launch (torch.profiler, {calls} calls): "
+    return split
+
+
+def launch_ms(label, fn, names, calls: int = 10):
+    """A log-mel kernel's device time per call split by its launches
+    ``names`` (torch.profiler); → {launch: ms per call}."""
+    split = device_ms(fn, names, calls)
+    check(sorted(split) == sorted(names), f"{label}'s {len(names)} launches in the profile: "
+                                          f"{sorted(split)}")
+    print(f"[kernels] {label} by launch (torch.profiler, {calls} calls): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
     return split
 
@@ -451,21 +467,24 @@ def library_log_mel_ms(x, cfg, ref32):
     return ms
 
 
-def check_k2(k2, k1, cfg):
+def check_k2(k2, k1, cfg, library_ms):
     """K2 against its plain version, the float32 GEMM front end and K1 at
-    [128, 128000]; → report fields."""
+    [128, 128000], its bits across two runs and its time by launch; →
+    report fields."""
     import torch
 
-    from synthetic_audio_detection_tpu_torch.ops import melspec
+    from synthetic_audio_detection_tpu_torch.ops import cuda_melspec_strip, melspec
 
     x = kernel_windows()
     got = k2(x, cfg)
+    again = k2(x, cfg)
     ref = melspec.log_mel_strip(x, cfg)
     ref32 = melspec.log_mel_features(x, cfg, SR, use_gemm_dft=True, resize=False)
     z1 = k1(x, cfg)
     torch.cuda.synchronize()
     check(got.shape == (BATCH, 128, 251) and got.dtype == torch.float32
           and bool(torch.isfinite(got).all()), "K2 output shape/finite")
+    deterministic = torch.equal(got, again)
     err = float((got - ref).abs().max())
     # the reference's bound for the strip kernel's bf16 DFT against float32
     # (tests/test_pallas_melspec.py:30-33)
@@ -480,26 +499,45 @@ def check_k2(k2, k1, cfg):
     print(f"[kernels] K2 z: max|kernel-plain bf16| {err:.3g} (tol {TOL_Z}), against the float32 "
           f"GEMM front end: max {float((got - ref32).abs().max()):.3g}, excess over "
           f"0.05 + 0.05·|ref| {excess32:.3g}, |Δmean| {d_mean:.3g}, |Δstd| {d_std:.3g} "
-          f"({'ok' if ok32 else 'FAILED'}); mean|K2-K1| {vs_k1:.3g} (< 5e-3); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+          f"({'ok' if ok32 else 'FAILED'}); mean|K2-K1| {vs_k1:.3g} (< 5e-3); identical bits "
+          f"across two runs: {deterministic}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+          flush=True)
     check(err <= TOL_Z, f"K2 disagrees with its plain version: {err} > {TOL_Z}")
     check(ok32, "K2 outside the reference bound against the float32 front end")
     check(vs_k1 < 5e-3, f"K2 and K1 differ by {vs_k1} on average")
+    check(deterministic, "K2 gave other bits on a second run")
 
-    # bound: the per-frame DFT on the tensor cores in bf16 and the sparse
-    # float32 mel product over this filterbank's nonzero weights; the
-    # waveforms in, the z-scores out and the constants
+    split = launch_ms("K2", lambda: k2(x, cfg),
+                      ("strip_bf16_kernel", "strip_dft_kernel", "strip_tail_kernel"))
+
+    # bound, from the work the function needs (cuda_melspec_strip.work):
+    # each frame's DFT against the table's bins on the tensor cores in bf16
+    # and one float32 multiply-add per filterbank nonzero a frame; the
+    # waveforms in, the z-scores out and the constants read once. The
+    # tiling's own work (the bands' overlap, the rows that start no frame,
+    # groups of 4 bins) is printed beside it.
     c = k2.constants(cfg, SR, x.device)
-    n_bins, n_frames = c["cs"].shape[0] // 2, got.shape[2]
-    dft = 2.0 * BATCH * n_frames * cfg.n_fft * 2 * n_bins
-    mel = 2.0 * BATCH * n_frames * int(torch.count_nonzero(c["w"]))
+    B, T = x.shape
+    w = cuda_melspec_strip.work(c, cfg, B, T)
     nbytes = (x.numel() * 4 + got.numel() * 4
               + sum(t.numel() * t.element_size() for t in c.values()))
-    b_ms, b_by = bound([(dft, PEAK_BF16), (mel, PEAK_F32)], nbytes)
-    print(f"[kernels] K2 bound {b_ms:.4f} ms ({b_by}): strip DFT {dft / 1e9:.2f} GFLOP bf16, "
-          f"mel product {mel / 1e9:.3f} GFLOP float32, {nbytes / 1e6:.1f} MB", flush=True)
+    b_ms, b_by = bound([(w["dft_min"], PEAK_BF16), (w["mel_min"], PEAK_F32)], nbytes)
+    dft_ms = split["strip_dft_kernel"]
+    print(f"[kernels] K2 bound {b_ms:.4f} ms ({b_by}): strip DFT {w['dft_min'] / 1e9:.2f} GFLOP "
+          f"bf16, mel product {w['mel_min'] / 1e9:.4f} GFLOP float32 "
+          f"({int(torch.count_nonzero(c['weights']))} filterbank nonzeros a frame), "
+          f"{nbytes / 1e6:.1f} MB; the kernel at {100 * b_ms / ms:.1f}% of it, "
+          f"{ms / library_ms:.3f}× the library composition's time. The tiling's own work: DFT "
+          f"{w['dft'] / 1e9:.2f} GFLOP ({w['dft'] / w['dft_min']:.3f}×: {c['f0'].numel()} bands "
+          f"of 128 bins, the rows that start no frame), mel product {w['mel'] / 1e9:.4f} GFLOP "
+          f"({w['mel'] / w['mel_min']:.3f}×). The DFT launch: {w['dft'] / dft_ms / 1e9:.1f} "
+          f"TFLOP/s of the tiling's work, {w['dft_min'] / dft_ms / 1e9:.1f} of the function's",
+          flush=True)
     return dict(err=err, excess32=excess32, d_mean=d_mean, d_std=d_std, vs_k1=vs_k1, ms=ms,
-                plain_ms=plain_ms, bound=(b_ms, b_by))
+                plain_ms=plain_ms, bound=(b_ms, b_by), launch_ms=split,
+                deterministic=deterministic,
+                dft_tiling_factor=w["dft"] / w["dft_min"],
+                dft_launch_tflops=w["dft"] / dft_ms / 1e9)
 
 
 def front_end(log_mel, x, cfg):
@@ -797,17 +835,22 @@ def check_probes():
         ms = median_ms(lambda: entry(x, w))
         plain_ms = median_ms(lambda: plain(x, w))
         library_ms = median_ms(library)
+        # the device's own time (torch.profiler, every kernel of the call),
+        # apart from the host's launch work that the event times include
+        dev_ms = sum(device_ms(lambda: entry(x, w), calls=20).values())
+        library_dev_ms = sum(device_ms(library, calls=20).values())
         flops = 2.0 * got.numel() * 64 * taps
         nbytes = 2.0 * (x_rows.numel() + w.numel() + got.numel())
         b_ms, b_by = bound([(flops, PEAK_BF16)], nbytes)
         rows[pid] = dict(entry=entry.__name__, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, mflop=flops / 1e6,
-                         mb=nbytes / 1e6)
+                         library_ms=library_ms, device_ms=dev_ms, library_device_ms=library_dev_ms,
+                         bound_ms=b_ms, bound_by=b_by, mflop=flops / 1e6, mb=nbytes / 1e6)
+        lib = "matmul" if pid == "P1" else "conv1d"
         print(f"[kernels] {pid} {entry.__name__} {list(x.shape)} × {list(w.shape)} → "
               f"{list(got.shape)}: max|kernel-plain| {err:.3g} (≤ 2^-7·|ref| + 1e-5), kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f}, {'matmul' if pid == 'P1' else 'conv1d'} "
-              f"{library_ms:.4f}, bound {b_ms:.6f} ms ({b_by}; {flops / 1e6:.1f} MFLOP, "
-              f"{nbytes / 1e6:.3f} MB)", flush=True)
+              f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f}, {lib} {library_ms:.4f} "
+              f"(device {library_dev_ms:.4f}), bound {b_ms:.6f} ms ({b_by}; "
+              f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB)", flush=True)
     return rows
 
 
@@ -910,7 +953,7 @@ def main() -> int:
     # 3. kernels against their plain versions
     k1_report = check_k1(k1, SpectrogramConfig.inference())
     t0 = time.perf_counter()
-    k2_report = check_k2(k2, k1, SpectrogramConfig.inference())
+    k2_report = check_k2(k2, k1, SpectrogramConfig.inference(), k1_report["library_ms"])
     print(f"[kernels] K2 checks took {time.perf_counter() - t0:.1f} s", flush=True)
     conv_rows, conv_entries, conv_total = check_conv()
     stem = check_stem()
@@ -1132,10 +1175,15 @@ def main() -> int:
                              "abs_mean_diff": k2_report["d_mean"],
                              "abs_std_diff": k2_report["d_std"]},
         "mean_abs_diff_vs_k1": k2_report["vs_k1"],
+        "deterministic": k2_report["deterministic"],
         "ms": k2_report["ms"],
         "plain_ms": k2_report["plain_ms"],
         "bound_ms": k2_report["bound"][0],
         "bound_by": k2_report["bound"][1],
+        "bound_share": k2_report["bound"][0] / k2_report["ms"],
+        "dft_tiling_factor": k2_report["dft_tiling_factor"],
+        "launch_ms": k2_report["launch_ms"],
+        "dft_launch_tflops": k2_report["dft_launch_tflops"],
         "library_ms": k1_report["library_ms"],
         "library": LIBRARY_LOG_MEL,
         "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
@@ -1205,10 +1253,12 @@ def main() -> int:
             "tol": "|kernel − plain| ≤ 2^-7·|plain| + 1e-5 (one bf16 ulp)",
             "per": "one call at the Pallas shapes",
             "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "library_device_ms": r["library_device_ms"],
             "library": library[pid],
         })
     print(json.dumps({"kernels": report}))

@@ -79,6 +79,45 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
         : "memory");
 }
 
+// The same load of a box into the shared memory of every CTA of the cluster
+// in `mask` (bit r: rank r), at dst's offset, each completing on its own
+// barrier at bar's offset.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1,
+                                                      uint16_t mask) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(dst),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
+        : "memory");
+}
+
+// ---- thread block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+// Arrive on the barrier at bar's offset in the shared memory of CTA `rank`
+// of the cluster (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+    asm volatile(
+        "{\n.reg .b32 remote;\n"
+        "mapa.shared::cluster.u32 remote, %0, %1;\n"
+        "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+        "r"(rank)
+        : "memory");
+}
+
+// Every thread of the cluster: wait until all its threads that have not
+// exited have arrived (shared memory writes before it are visible after).
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" :::
+                     "memory");
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,

@@ -98,23 +98,23 @@ def dft_rows(n_fft: int, hop: int, n_sig: int) -> np.ndarray:
     return rows
 
 
-def band_plan(lo: np.ndarray, off: np.ndarray, width: int = BAND_OUT_BINS
+def band_plan(lo: np.ndarray, off: np.ndarray, width: int = BAND_OUT_BINS, align: int = 4
               ) -> Tuple[np.ndarray, np.ndarray]:
     """Bands of ``width`` bins such that each mel's whole span (``lo``,
     ``off`` of ``melspec.sparse_columns``) lies in the band that owns it:
     → (f0 [bands], the first bin of each band; edges [bands + 1], band k
     owning mels edges[k] … edges[k + 1] − 1), int32. Greedy in mel order: a
-    band starts at its first mel's first bin, moved down to f0 ≡ 1 (mod 4)
-    so that bin f0 − 1 + j has the phases of j mod 4, and takes the
-    following mels while they fit. A mel without weights, or wider than a
-    band, raises."""
+    band starts at its first mel's first bin, moved down to f0 ≡ 1 (mod
+    ``align``) (this kernel's 4, so that bin f0 − 1 + j has the phases of j
+    mod 4; 1 leaves it where it is), and takes the following mels while
+    they fit. A mel without weights, or wider than a band, raises."""
     spans = np.diff(off)
     if not spans.all():
         raise ValueError(f"mel {int(np.argmin(spans))} has no filterbank weight")
     f0s, edges = [], [0]
     m, n = 0, len(lo)
     while m < n:
-        start = int(lo[m]) - (int(lo[m]) - 1) % 4
+        start = int(lo[m]) - (int(lo[m]) - 1) % align
         k = m
         while k < n and start <= lo[k] and lo[k] + spans[k] <= start + width:
             k += 1
@@ -127,22 +127,25 @@ def band_plan(lo: np.ndarray, off: np.ndarray, width: int = BAND_OUT_BINS
 
 
 def band_tables(lo: np.ndarray, off: np.ndarray, w: np.ndarray, f0: np.ndarray,
-                edges: np.ndarray) -> Dict[str, np.ndarray]:
+                edges: np.ndarray, bins: Optional[int] = None, first: int = -1
+                ) -> Dict[str, np.ndarray]:
     """The mel product of each band as two running sums over its bins, one
     for its even and one for its odd mels (a triangle's support ends where
     the next but one begins, so the mels of one parity never share a bin):
-    ``weights`` [bands, 2, BAND_BINS] float32, the weight of local bin j
-    (bin f0 − 1 + j) in the parity's mel there, or 0; ``ends`` [bands, 2,
-    BAND_BINS] int32, the mel whose last bin j is, or −1; ``quads`` [bands,
-    2, 2] int32, the parity's first and past-last group of 4 local bins.
+    ``weights`` [bands, 2, bins] float32, the weight of local bin j (bin
+    f0 + first + j: this kernel's bands start one halo bin below f0) in the
+    parity's mel there, or 0; ``ends`` [bands, 2, bins] int32, the mel whose
+    last bin j is, or −1; ``quads`` [bands, 2, 2] int32, the parity's first
+    and past-last group of 4 local bins. ``bins`` defaults to BAND_BINS.
     Mels of one parity that share a bin raise."""
     n_bands = len(f0)
-    weights = np.zeros((n_bands, 2, BAND_BINS), np.float32)
-    ends = np.full((n_bands, 2, BAND_BINS), -1, np.int32)
+    bins = BAND_BINS if bins is None else bins
+    weights = np.zeros((n_bands, 2, bins), np.float32)
+    ends = np.full((n_bands, 2, bins), -1, np.int32)
     quads = np.zeros((n_bands, 2, 2), np.int32)
     for k in range(n_bands):
         for m in range(edges[k], edges[k + 1]):
-            j = np.arange(lo[m], lo[m] + off[m + 1] - off[m]) - f0[k] + 1
+            j = np.arange(lo[m], lo[m] + off[m + 1] - off[m]) - f0[k] - first
             if np.any(weights[k, m % 2, j]):
                 raise ValueError(f"mel {m} shares a bin with another mel of its parity")
             weights[k, m % 2, j] = w[off[m]:off[m + 1]]  # nonzero over the whole span
@@ -154,10 +157,11 @@ def band_tables(lo: np.ndarray, off: np.ndarray, w: np.ndarray, f0: np.ndarray,
     return {"weights": weights, "ends": ends, "quads": quads}
 
 
-def row_tiles(n_windows: int, nb: int, n_frames: int) -> int:
-    """Tiles of TILE_ROWS hop blocks, TILE_FRAMES apart over all windows'
-    blocks back to back, that hold the first block of every frame."""
-    return -(-((n_windows - 1) * nb + n_frames) // TILE_FRAMES)
+def row_tiles(n_windows: int, nb: int, n_frames: int, tile_frames: int = TILE_FRAMES) -> int:
+    """Tiles of TILE_ROWS hop blocks, ``tile_frames`` apart over all
+    windows' blocks back to back, that hold the first block of every
+    frame."""
+    return -(-((n_windows - 1) * nb + n_frames) // tile_frames)
 
 
 def work(c: Dict[str, torch.Tensor], cfg: SpectrogramConfig, n_windows: int, T: int

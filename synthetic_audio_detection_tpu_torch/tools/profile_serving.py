@@ -40,7 +40,7 @@ PARTS: List[Tuple[str, Tuple[str, ...]]] = [
     ("D2H copy", ("Memcpy DtoH",)),
     ("conv kernel (K3)", ("conv3x3_",)),  # before "conv", which would take it
     ("K1 log-mel kernel", ("pad_bf16_kernel", "dft_mel_kernel", "db_standardize_kernel")),
-    ("K2 log-mel kernel", ("strip_dft_power_kernel", "strip_mel_tail_kernel")),
+    ("K2 log-mel kernel", ("strip_bf16_kernel", "strip_dft_kernel", "strip_tail_kernel")),
     ("max-pool", ("max_pool",)),
     ("resize", ("upsample", "bilinear", "interpolate")),
     ("cuDNN convolutions", ("conv", "xmma", "implicit", "cudnn", "fprop", "nhwc", "nchw")),

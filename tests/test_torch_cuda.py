@@ -207,7 +207,8 @@ def test_factored_mel_kernel_refuses_a_plan_for_other_sizes(monkeypatch, name, s
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,samples", [(2, 32_000), (3, 128_000), (128, 128_000)])
+@pytest.mark.parametrize("batch,samples", [(2, 32_000), (3, 128_000), (128, 128_000),
+                                           (3, 127_700), (2, 1_100)])
 def test_strip_mel_kernel_matches_plain_version(batch, samples):
     """Same bf16 operands on both sides (the windowed frame rounded once, the
     cos|sin): the float32 summation order of the DFT and mel products is all
@@ -224,15 +225,70 @@ def test_strip_mel_kernel_matches_plain_version(batch, samples):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("norm", [None, "slaney"])
+def test_strip_mel_kernel_at_a_band_edge(norm):
+    """96 mels: each band's first mel starts at its first bin and mels end
+    at local bin 127, the band's last column pair (the band plan's edges,
+    tests/test_torch_melspec_strip_tiled.py)."""
+    _cuda_or_skip()
+    cfg = SpectrogramConfig(mel_norm=norm, n_mels=96)
+    x = _waves(3, 128_000, seed=12)
+    got = cuda_melspec_strip.fused_log_mel(x, cfg)
+    ref = melspec.log_mel_strip(x, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 96, 251)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
 def test_strip_mel_kernel_is_deterministic_and_raises():
+    """The same bits on a second run (each mel cell is written once, with
+    no atomics); refusals in the wrapper."""
     _cuda_or_skip()
     x = _waves(8, 128_000)
     a = cuda_melspec_strip.fused_log_mel(x, CFG)
     assert torch.equal(a, cuda_melspec_strip.fused_log_mel(x, CFG))
     with pytest.raises(TypeError):
         cuda_melspec_strip.fused_log_mel(x.to(torch.float16), CFG)
+    with pytest.raises(ValueError, match="32,768 cells"):
+        cuda_melspec_strip.fused_log_mel(_waves(1, 32_000 * 9), CFG)  # 563 frames
+    with pytest.raises(ValueError, match="a multiple of 64"):  # hop 96 divides n_fft 384
+        cuda_melspec_strip.fused_log_mel(
+            x, SpectrogramConfig(mel_norm="slaney", n_fft=384, hop_length=96))
+
+
+@pytest.mark.cuda
+def test_strip_mel_kernel_scratch_is_strips_and_mel_plane():
+    """At [128, 128000] one call allocates, beyond its input and output,
+    the four bf16 strips (133.2 MB), the float32 mel plane (16.4 MB) and
+    under 4 MB besides (1 MiB on an H100 with torch 2.11): no float32 [B,
+    n_bins, n_frames] power scratch (98.7 MB in the kernel's first design)
+    and no float32 padded copy of the waveforms (66.6 MB)."""
+    _cuda_or_skip()
+    x = _waves(128, 128_000, seed=10)
+    cuda_melspec_strip.fused_log_mel(x, CFG)  # build, constants
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = cuda_melspec_strip.fused_log_mel(x, CFG)
+    torch.cuda.synchronize()
+    scratch = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
+    strips = 4 * 128 * 254 * 512 * 2
+    mel = out.numel() * 4
+    assert strips + mel <= scratch < strips + mel + 4e6, scratch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,size", [("BAND_BINS", 136), ("TILE_ROWS", 64)])
+def test_strip_mel_kernel_refuses_a_plan_for_other_sizes(monkeypatch, name, size):
+    """The host plans bands and tiles with its own sizes and passes them to
+    the kernel, which refuses any but its compile-time ones."""
+    _cuda_or_skip()
+    monkeypatch.setattr(cuda_melspec_strip, name, size)
+    kernel = cuda_melspec_strip.StripMelKernel()  # tables of these sizes, not the cached ones
     with pytest.raises(RuntimeError, match="melspec_strip launch failed"):
-        cuda_melspec_strip.fused_log_mel(_waves(1, 32_000 * 9), CFG)  # 563 frames > 256
+        kernel(_waves(1, 32_000), CFG)
+    assert kernel.launches == 0
 
 
 def _conv_inputs(B, H, W, C, F, seed=7, w_std=0.1):

@@ -16,8 +16,10 @@ from synthetic_audio_detection_tpu_torch.tools import profile_serving as P
     ("(anonymous namespace)::dft_mel_kernel(CUtensorMap_st, CUtensorMap_st, "
      "(anonymous namespace)::Params)", "K1 log-mel kernel"),
     ("void (anonymous namespace)::db_standardize_kernel<__nv_bfloat16>(...)", "K1 log-mel kernel"),
-    ("(anonymous namespace)::strip_dft_power_kernel(...)", "K2 log-mel kernel"),
-    ("(anonymous namespace)::strip_mel_tail_kernel(...)", "K2 log-mel kernel"),
+    ("(anonymous namespace)::strip_bf16_kernel(...)", "K2 log-mel kernel"),
+    ("(anonymous namespace)::strip_dft_kernel(CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::Params)", "K2 log-mel kernel"),
+    ("(anonymous namespace)::strip_tail_kernel(...)", "K2 log-mel kernel"),
     ("Memcpy HtoD (Pageable -> Device)", "H2D copy"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cuDNN convolutions"),
     ("void at::native::max_pool_forward_nhwc<c10::BFloat16>", "max-pool"),
@@ -44,3 +46,11 @@ def test_profile_script_needs_a_gpu(capsys):
     assert P.main([]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
 
+
+
+def test_log_mel_kernel_names_do_not_contain_one_another():
+    """K1's and K2's launches are told apart whatever the order of the
+    table: no launch name of one contains another's."""
+    keys = [k for part, names in P.PARTS if "log-mel" in part for k in names]
+    assert len(keys) == 6
+    assert not [(a, b) for a in keys for b in keys if a != b and a in b]
