@@ -39,10 +39,12 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
              (tiled, flat, flat_static) at the layer-1 shape; then the 7x7
              stem on one plane and on three channels against the BN-folded
              bf16 cuDNN stem;
-           - P1-P3, the helper probes' kernel, at the Pallas shapes on
-             seeded numpy bf16 inputs, with their device time
-             (torch.profiler) beside the event time, and the same for the
-             library calls.
+           - P1-P3, the helper probes' kernel (wgmma fed by TMA, one block
+             per 64-row output tile), at the Pallas shapes on seeded numpy
+             bf16 inputs, with each probe's grid and its kernel's ptxas
+             line, their device time (torch.profiler) beside the event
+             time, and the same for the library calls, faster or slower on
+             the device.
 4. front   the mel-only front end as the reference's benchmark drives it:
            fused_log_mel (K2) → finalize_features → bf16 on 128 seeded 4-s
            windows at out_size 512, 256 and 0 (native), counts zeroed
@@ -92,6 +94,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -795,6 +798,21 @@ def check_stem():
 PROBE_SHAPES = {"P1": (64, 64), "P2": (64, 64), "P3": (9, 64, 64)}
 
 
+def ptxas_by_instance(name: str, kernel: str):
+    """{n: ptxas lines} for each instance kernel<n> in the build log of
+    csrc/<name>.cu."""
+    from synthetic_audio_detection_tpu_torch.ops import build
+
+    out, entry = {}, None
+    for line in build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(kernel + r"ILi(\d+)E", line)
+            entry = int(m.group(1)) if m else None
+        elif entry is not None and ("Used" in line or "spill" in line):
+            out.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
 def check_probes():
     """P1-P3 against their plain versions at the Pallas shapes on seeded
     numpy bf16 inputs: one bf16 ulp, like the conv kernel (the same exact
@@ -807,6 +825,7 @@ def check_probes():
     entries = {"P1": (cuda_probes.dyn_slice_dot, cuda_probes.dyn_slice_dot_plain),
                "P2": (cuda_probes.lane_concat_dot, cuda_probes.lane_concat_dot_plain),
                "P3": (cuda_probes.nine_tap_dot, cuda_probes.nine_tap_dot_plain)}
+    ptxas = ptxas_by_instance(cuda_probes.LIBRARY, "shifted_taps_kernel")
     rows = {}
     for i, (pid, (entry, plain)) in enumerate(entries.items()):
         rng = np.random.default_rng(200 + i)
@@ -846,11 +865,18 @@ def check_probes():
                          library_ms=library_ms, device_ms=dev_ms, library_device_ms=library_dev_ms,
                          bound_ms=b_ms, bound_by=b_by, mflop=flops / 1e6, mb=nbytes / 1e6)
         lib = "matmul" if pid == "P1" else "conv1d"
+        plan = cuda_probes.tiles(out_rows, taps, row0)
+        print(f"[kernels] {pid} grid: {x.shape[0] * len(plan)} blocks ({len(plan)} tiles of "
+              f"{cuda_probes.TILE_ROWS} rows × {x.shape[0]} images, no cluster); ptxas "
+              f"shifted_taps_kernel<{taps}>: {'; '.join(ptxas.get(taps, ['not in the log']))}",
+              flush=True)
         print(f"[kernels] {pid} {entry.__name__} {list(x.shape)} × {list(w.shape)} → "
               f"{list(got.shape)}: max|kernel-plain| {err:.3g} (≤ 2^-7·|ref| + 1e-5), kernel "
               f"{ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f}, {lib} {library_ms:.4f} "
               f"(device {library_dev_ms:.4f}), bound {b_ms:.6f} ms ({b_by}; "
-              f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB)", flush=True)
+              f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB); on the device "
+              f"{'faster' if dev_ms < library_dev_ms else 'slower'} than {lib} "
+              f"({lib} / kernel {library_dev_ms / dev_ms:.2f})", flush=True)
     return rows
 
 

@@ -7,11 +7,16 @@
 // 1024 bytes one after another, the tile's base 1024-byte aligned. A k16
 // slice of it starts 32 bytes further along the row.
 //
+// A B tile may also be MN-major (wgmma's transpose bit): a [K, N] row-major
+// box as TMA writes it with the same swizzle, 64 N values (128 bytes) a row,
+// one row per k.
+//
 // Accumulator layout of m64nNk16 (N/2 floats a thread): thread t of the
 // warpgroup (warp w = t / 32, lane l = t % 32) holds, at index
 // i = 4·j + 2·h + e, row 16·w + l / 4 + 8·h and column 8·j + 2·(l % 4) + e.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace sad {
@@ -23,6 +28,24 @@ namespace sad {
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
     return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
            ((uint64_t)1 << 62);
+}
+
+// Matrix descriptor of an MN-major, 128-byte-swizzled [K, N ≤ 64] tile at
+// shared address addr (the canonical layout ((64, n), (8, k)) : ((1, LBO),
+// (64, SBO)) in elements): stride offset 1024 bytes, from one group of 8 k
+// rows to the next; leading offset the stride between 64-wide N blocks,
+// which a tile of N ≤ 64 has only one of (set to 1024 as well). A k16 slice
+// starts 2048 bytes (16 rows) further on.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(uint32_t addr) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+           ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Two floats → two bf16 in one register (round to nearest even); the low
+// half holds lo.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -42,7 +65,9 @@ __device__ __forceinline__ void wgmma_wait() {
 // Keeps the compiler from moving reads of an accumulator across a wait.
 __device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
-// d += A·B for one m64nNk16 step, A and B through descriptors (both K-major).
+// d += A·B for one m64nNk16 step, A and B through descriptors, A K-major,
+// B K-major (TRANS_B 0) or MN-major (TRANS_B 1, m64n64k16 only).
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -51,7 +76,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
         "%8, %9, %10, %11, %12, %13, %14, %15,"
         "%16, %17, %18, %19, %20, %21, %22, %23,"
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -60,7 +85,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(1), "n"(TRANS_B));
 }
 
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {

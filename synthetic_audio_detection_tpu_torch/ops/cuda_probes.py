@@ -12,17 +12,20 @@ out, every product summed in float32 and rounded once.
 - ``nine_tap_dot`` (P3): ``Σ_i x[:, i:i+256] @ W9[i]`` → [2, 256, 64].
 
 On Hopper the three are one kernel, a shifted-row multi-tap product
-parameterised by the taps, the per-tile row offset and the stride between
-the taps' weights. Every entry checks its inputs the same way on every
-device; then a CPU tensor runs the plain version (``*_plain``, a float32
-product of the bf16 values rounded once) and a CUDA tensor launches the
-kernel or raises. There is no fallback to the plain version.
+parameterised by the taps, the first input row and the stride between the
+taps' weights, over 64-row output tiles (``tiles``: the plan the kernel
+runs, which its entry checks). Every entry checks its inputs the same way on
+every device; then a CPU tensor runs the plain version (``*_plain``, a
+float32 product of the bf16 values rounded once) and a CUDA tensor launches
+the kernel or raises. There is no fallback to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from synthetic_audio_detection_tpu_torch.ops import build
@@ -36,8 +39,22 @@ REPLACES = {
     "P3": "benchmarks/pallas_helper_bisect.py:83",
 }
 X_SHAPE = (2, 2048, 64)
-TILE = 256           # output rows per Pallas block and per kernel block
+TILE = 256           # output rows per Pallas block
 P1_ROW0, P1_TILES = 3, 7
+TILE_ROWS = 64       # output rows per kernel block: one wgmma warpgroup's M
+
+
+@functools.lru_cache(maxsize=None)
+def tiles(rows_out: int, taps: int, row0: int, tile_rows: int = TILE_ROWS) -> np.ndarray:
+    """The kernel's tile plan (read-only, cached: it is on every call's host
+    path): [rows_out / tile_rows, taps], the first input row of tap i's A box
+    (tile_rows rows) for the tile of output rows tile_rows·t … tile_rows·t +
+    tile_rows − 1: row0 + tile_rows·t + i."""
+    if rows_out <= 0 or rows_out % tile_rows:
+        raise ValueError(f"rows_out must be a positive multiple of {tile_rows}, got {rows_out}")
+    plan = row0 + tile_rows * np.arange(rows_out // tile_rows)[:, None] + np.arange(taps)
+    plan.setflags(write=False)
+    return plan
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, w_shape: tuple) -> None:
@@ -71,30 +88,31 @@ class HelperProbesKernel:
         if self._lib is None:
             lib = build.load(LIBRARY)
             lib.sad_shifted_taps.argtypes = (
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
             lib.sad_shifted_taps.restype = ctypes.c_int
             lib.sad_probes_error_string.argtypes = [ctypes.c_int]
             lib.sad_probes_error_string.restype = ctypes.c_char_p
             self._lib = lib
         return self._lib
 
-    def __call__(self, x: torch.Tensor, w: torch.Tensor, taps: int, row0: int, tiles: int,
+    def __call__(self, x: torch.Tensor, w: torch.Tensor, taps: int, row0: int, rows_out: int,
                  w_tap_stride: int) -> torch.Tensor:
-        """out[b, 256·t + r] = Σ_{i < taps} x[b, row0 + 256·t + i + r] @ W_i,
-        W_i the [64, 64] block at w's element i·w_tap_stride; x and w
-        checked by the entries."""
+        """out[b, r] = Σ_{i < taps} x[b, row0 + r + i] @ W_i for r < rows_out,
+        W_i the [64, 64] block at w's element i·w_tap_stride, on the tiles
+        of ``tiles(rows_out, taps, row0)``; x and w checked by the entries."""
         if x.device.type != "cuda":
             raise ValueError(f"the kernel takes CUDA tensors, got {x.device}")
-        if x.data_ptr() % 16:
-            raise ValueError("x must start on a 16-byte boundary")
+        if x.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("x and w must start on a 16-byte boundary")
         B, rows, C = x.shape
         cols = w.shape[-1]
-        out = torch.empty((B, TILE * tiles, cols), dtype=torch.bfloat16, device=x.device)
+        n_tiles = len(tiles(rows_out, taps, row0, TILE_ROWS))
+        out = torch.empty((B, rows_out, cols), dtype=torch.bfloat16, device=x.device)
         lib = self.load()
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.sad_shifted_taps(
             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), B, rows, C, cols, tiles, taps, row0,
+            ctypes.c_void_p(out.data_ptr()), B, rows, C, cols, TILE_ROWS, n_tiles, taps, row0,
             w_tap_stride, ctypes.c_void_p(stream))
         if rc != 0:
             msg = lib.sad_probes_error_string(rc).decode()
@@ -132,7 +150,7 @@ def dyn_slice_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w, (64, 64))
     if x.device.type == "cpu":
         return dyn_slice_dot_plain(x, w)
-    return KERNEL(x, w, taps=1, row0=P1_ROW0, tiles=P1_TILES, w_tap_stride=0)
+    return KERNEL(x, w, taps=1, row0=P1_ROW0, rows_out=TILE * P1_TILES, w_tap_stride=0)
 
 
 def lane_concat_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -141,7 +159,7 @@ def lane_concat_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check(x, w, (64, 64))
     if x.device.type == "cpu":
         return lane_concat_dot_plain(x, w)
-    return KERNEL(x, w, taps=2, row0=0, tiles=1, w_tap_stride=0)
+    return KERNEL(x, w, taps=2, row0=0, rows_out=TILE, w_tap_stride=0)
 
 
 def nine_tap_dot(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
@@ -149,4 +167,4 @@ def nine_tap_dot(x: torch.Tensor, w9: torch.Tensor) -> torch.Tensor:
     _check(x, w9, (9, 64, 64))
     if x.device.type == "cpu":
         return nine_tap_dot_plain(x, w9)
-    return KERNEL(x, w9, taps=9, row0=0, tiles=1, w_tap_stride=64 * 64)
+    return KERNEL(x, w9, taps=9, row0=0, rows_out=TILE, w_tap_stride=64 * 64)

@@ -517,6 +517,43 @@ def test_probe_kernel_matches_plain_version(probe):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("probe", sorted(PROBES))
+def test_probe_kernel_on_a_triangular_weight(probe):
+    """A strictly upper-triangular W (W[k, n] = 0 for n ≤ k) is far from its
+    transpose, so a B operand read transposed fails here; the ones inputs of
+    helper_bisect cannot show it. One bf16 ulp of the plain version, and the
+    same bits on a second run."""
+    _cuda_or_skip()
+    entry, plain, w_shape = PROBES[probe]
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal(cuda_probes.X_SHAPE).astype(np.float32))
+    w = torch.triu(torch.from_numpy((rng.standard_normal(w_shape) / 8).astype(np.float32)), 1)
+    x, w = x.to(torch.bfloat16).cuda(), w.to(torch.bfloat16).contiguous().cuda()
+    got = entry(x, w)
+    ref = plain(x, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -7, atol=1e-5)
+    assert torch.equal(got, entry(x, w))
+    # the transposed weight gives another function: the check can fail
+    assert (plain(x, w.transpose(-1, -2).contiguous()).float() - ref.float()).abs().max() > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_rows", [32, 128])
+def test_probe_kernel_refuses_a_tile_size_other_than_its_own(monkeypatch, tile_rows):
+    """The host plans 64-row tiles and passes their size; the kernel refuses
+    any other, and nothing is counted."""
+    _cuda_or_skip()
+    monkeypatch.setattr(cuda_probes, "TILE_ROWS", tile_rows)
+    x = torch.zeros(cuda_probes.X_SHAPE, dtype=torch.bfloat16, device="cuda")
+    w9 = torch.zeros(9, 64, 64, dtype=torch.bfloat16, device="cuda")
+    before = cuda_probes.KERNEL.launches
+    with pytest.raises(RuntimeError, match="helper_probes launch failed"):
+        cuda_probes.nine_tap_dot(x, w9)
+    assert cuda_probes.KERNEL.launches == before
+
+
+@pytest.mark.cuda
 def test_helper_bisect_on_the_card(capsys):
     """The three exact sums, one kernel launch per probe."""
     _cuda_or_skip()

@@ -99,6 +99,78 @@ def test_probe_matches_pallas(probe, seed):
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=BF16_ULP, atol=1e-5)
 
 
+# (taps, row0, output rows per image, entry's plain version) of each probe
+PLANS = {"P1": (1, cuda_probes.P1_ROW0, cuda_probes.TILE * cuda_probes.P1_TILES,
+                cuda_probes.dyn_slice_dot_plain),
+         "P2": (2, 0, cuda_probes.TILE, cuda_probes.lane_concat_dot_plain),
+         "P3": (9, 0, cuda_probes.TILE, cuda_probes.nine_tap_dot_plain)}
+
+
+@pytest.mark.parametrize("probe", sorted(PLANS))
+def test_tiles_cover_every_output_row_once(probe):
+    """The kernel's plan: 64-row tiles, one block each per image (P1 28, P2
+    and P3 4), whose output rows are every row of the probe once."""
+    taps, row0, rows_out, _ = PLANS[probe]
+    plan = cuda_probes.tiles(rows_out, taps, row0)
+    assert plan.shape == (rows_out // cuda_probes.TILE_ROWS, taps)
+    assert cuda_probes.X_SHAPE[0] * len(plan) == {"P1": 56, "P2": 8, "P3": 8}[probe]
+    rows = np.concatenate([cuda_probes.TILE_ROWS * t + np.arange(cuda_probes.TILE_ROWS)
+                           for t in range(len(plan))])
+    np.testing.assert_array_equal(np.sort(rows), np.arange(rows_out))
+
+
+@pytest.mark.parametrize("probe", sorted(PLANS))
+def test_every_tap_box_lies_inside_the_input(probe):
+    """Tap i of tile t reads the 64 rows from row0 + 64·t + i on, all inside
+    x's 2048 rows (the kernel's entry refuses a plan that is not)."""
+    taps, row0, rows_out, _ = PLANS[probe]
+    plan = cuda_probes.tiles(rows_out, taps, row0)
+    t = np.arange(len(plan))[:, None]
+    np.testing.assert_array_equal(plan, row0 + cuda_probes.TILE_ROWS * t + np.arange(taps))
+    assert plan.min() >= 0
+    assert plan.max() + cuda_probes.TILE_ROWS <= cuda_probes.X_SHAPE[1]
+    assert not plan.flags.writeable
+
+
+def test_tiles_refuse_rows_that_are_not_whole_tiles():
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cuda_probes.tiles(100, 1, 0)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cuda_probes.tiles(0, 1, 0)
+
+
+def _emulate(x, w, taps, row0, rows_out):
+    """The kernel's arithmetic walked tile by tile over its plan: each
+    tile's taps summed in float32 from their own A boxes, rounded once."""
+    ws = [w] * taps if w.dim() == 2 else list(w)
+    out = torch.empty((x.shape[0], rows_out, w.shape[-1]), dtype=torch.bfloat16)
+    n = cuda_probes.TILE_ROWS
+    for b in range(x.shape[0]):
+        for t, starts in enumerate(cuda_probes.tiles(rows_out, taps, row0)):
+            acc = torch.zeros((n, w.shape[-1]), dtype=torch.float32)
+            for wi, r in zip(ws, starts):
+                acc += x[b, r:r + n].float() @ wi.float()
+            out[b, n * t:n * (t + 1)] = acc.to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("probe", sorted(PLANS))
+def test_tiled_emulation_matches_plain_and_pallas(probe):
+    """The plan computes each probe: walked tile by tile it agrees with the
+    plain version and the restated Pallas probe to one bf16 ulp (the same
+    exact products summed in another order)."""
+    taps, row0, rows_out, plain = PLANS[probe]
+    x, w = _inputs(probe, 3)
+    got = _emulate(x, w, taps, row0, rows_out).float()
+    ref = plain(x, w).float()
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=BF16_ULP, atol=1e-5)
+    pallas = np.asarray(_pallas(probe, jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                                jnp.asarray(w.float().numpy()).astype(jnp.bfloat16))
+                        ).astype(np.float32)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=BF16_ULP, atol=1e-5)
+
+
 def test_helper_bisect_prints_the_exact_sums(capsys):
     assert helper_bisect.main(["--device", "cpu"]) == 0
     assert capsys.readouterr().out.splitlines() == [
