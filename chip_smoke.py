@@ -84,7 +84,31 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            routes' labels on every clear window against float32. Then the
            steady-state windows per second of both bf16 routes and of
            float32, in turns, at batch 128.
-8. report  one JSON line of kernels, the nvidia-smi line, and last
+8. train   the submodel trainer through its CLI main() at full width
+           (ResNet-18, 512², --bf16, --batch-size 16 = 32 rows) on a seeded
+           split tree written to the build directory (47 8-s files and one
+           too short in train/, 16 in test/): 3 epochs (layer3 unfreezes
+           at epoch 1), --resume from the best checkpoint's .pth twin to 4
+           epochs, --evaluate; counts zeroed before each run and read after:
+           K1 launched once per train step, never in an eval step (its
+           mel is the float32 GEMM mel, as the reference's), and no other
+           kernel.
+           Checks: finite losses; epoch 0 moves layer4 and the head and every
+           BN statistic of the stem and layer1-3 but no frozen weight; epoch
+           1 moves layer3; the resume starts at the saved epoch + 1 with the
+           .pth's moments bit for bit. Then the bf16 step's median ms, rows/s
+           and peak memory at 512², 32 rows, both phases; and one float32
+           step on the card against the same step on the CPU (128², 4 rows).
+           Before all this, in the kernels phase, K1 under
+           SpectrogramConfig.train() (dB only) at [32, 128000] against its
+           plain version: float32 and int16 windows and 8 zero tail rows,
+           identical bits across runs, z-scores too, and its time.
+9. trunk   a trunk-shared ensemble (stem to layer3 shared, layer4 and the
+           heads per sub-model) through the CLI from its .pth and from
+           save_merged_native's file: the JSON of the dense layout of the
+           same weights, and one trunk pass per batch.
+10. report the train step's and the trunk runs' numbers, one JSON line of
+           kernels, the nvidia-smi line, and last
            {"ok": true, "device": {...}}.
 """
 
@@ -918,6 +942,404 @@ def windows_per_s(pipe, windows, runs: int = 5) -> float:
     return windows.shape[0] / float(np.median(times))
 
 
+# ---------------------------------------------------------------------------
+# The training path
+# ---------------------------------------------------------------------------
+
+TRAIN_ROWS = 32  # --batch-size 16: two 4-s segments a file
+TRAIN_FILES = 47  # + one too short: three full batches of 16 files an epoch
+TEST_FILES = 8    # per class: one batch of 16 files
+
+
+def check_k1_train(k1, smi):
+    """K1 under the training configuration (SpectrogramConfig.train():
+    mel_norm None, dB only) against its plain version at [32, 128000]:
+    seeded float32 windows, the same as int16 PCM, and a batch whose last 8
+    rows are zero padding; TOL_DB on the dB plane and identical bits across
+    runs; TOL_Z on z-scores. Its time at that shape; → report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.ops import cuda_melspec, melspec
+    from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
+
+    cfg = SpectrogramConfig.train()
+    x = torch.from_numpy((np.random.default_rng(2).standard_normal((TRAIN_ROWS, 128_000)) * 0.3)
+                         .astype(np.float32)).cuda()
+    pcm = torch.round(x * 32768).clamp(-32768, 32767).to(torch.int16)
+    padded = pcm.clone()
+    padded[TRAIN_ROWS - 8:] = 0
+    errs = {}
+    for name, inp in (("float32", x), ("int16", pcm), ("padded", padded)):
+        got = k1(inp, cfg, standardize=False)
+        again = k1(inp, cfg, standardize=False)
+        ref = melspec.log_mel_factored(cuda_melspec.dequantize(inp), cfg, standardize=False,
+                                       dft_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        check(got.shape == (TRAIN_ROWS, 128, 251) and bool(torch.isfinite(got).all()),
+              f"K1 train config ({name}) shape/finite")
+        check(torch.equal(got, again), f"K1 train config ({name}): bits differ across runs")
+        errs[name] = float((got - ref).abs().max())
+        check(errs[name] <= TOL_DB, f"K1 train config ({name}) dB off its plain version: "
+                                    f"{errs[name]} > {TOL_DB}")
+    z = k1(x, cfg, standardize=True)
+    z_ref = melspec.log_mel_factored(x, cfg, standardize=True, dft_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    errs["z"] = float((z - z_ref).abs().max())
+    check(errs["z"] <= TOL_Z, f"K1 train config z-scores off: {errs['z']} > {TOL_Z}")
+    ms = median_ms(lambda: k1(x, cfg, standardize=False))
+    ms_int16 = median_ms(lambda: k1(pcm, cfg, standardize=False))
+    plain_ms = median_ms(lambda: melspec.log_mel_factored(x, cfg, standardize=False,
+                                                          dft_dtype=torch.bfloat16))
+    c = k1.constants(cfg, SR, x.device)
+    w = cuda_melspec.work(c, cfg, TRAIN_ROWS, 128_000)
+    nbytes = (x.numel() * 4 + TRAIN_ROWS * cfg.n_mels * 251 * 4
+              + sum(c[k].numel() * c[k].element_size() for k in ("cs", "f0", "weights", "ends",
+                                                                  "quads")))
+    b_ms, b_by = bound([(w["dft_min"], PEAK_BF16), (w["mel_min"], PEAK_F32)], nbytes)
+    print(f"[kernels] K1 SpectrogramConfig.train() dB at [{TRAIN_ROWS}, 128000]: max|kernel-plain| "
+          f"float32 {errs['float32']:.3g}, int16 {errs['int16']:.3g}, 8 zero tail rows "
+          f"{errs['padded']:.3g} dB (tol {TOL_DB}), identical bits across runs; z {errs['z']:.3g} "
+          f"(tol {TOL_Z}); kernel {ms:.4f} ms float32 in, {ms_int16:.4f} ms int16 in, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+    return dict(errs=errs, ms=ms, ms_int16=ms_int16, plain_ms=plain_ms, bound=(b_ms, b_by))
+
+
+def write_train_tree(root):
+    """train/ and test/ × Real, SynthA: 8-s 32 kHz PCM_16 WAVs (two
+    segments each) from a seed, Real broadband noise and SynthA noise under
+    a few harmonics; plus one 1-s file in train/Real that the short-file
+    policy drops."""
+    from synthetic_audio_detection_tpu_torch.audio import wavio
+
+    rng = np.random.default_rng(11)
+    t = np.arange(8 * SR) / SR
+    counts = {"train": {"Real": TRAIN_FILES - TRAIN_FILES // 2, "SynthA": TRAIN_FILES // 2},
+              "test": {"Real": TEST_FILES, "SynthA": TEST_FILES}}
+    for split, per in counts.items():
+        for cls, n in per.items():
+            os.makedirs(os.path.join(root, split, cls))
+            for i in range(n):
+                x = rng.standard_normal(t.size) * rng.uniform(0.05, 0.2)
+                if cls == "SynthA":
+                    f0 = rng.uniform(150, 600)
+                    x = x + sum(0.2 / k * np.sin(2 * np.pi * k * f0 * t) for k in (1, 2, 3))
+                wavio.write_wav(os.path.join(root, split, cls, f"{cls}_{i:02d}.wav"),
+                                np.clip(x, -1, 1).astype(np.float32), SR)
+    wavio.write_wav(os.path.join(root, "train", "Real", "short.wav"),
+                    np.zeros(SR, np.float32), SR)
+
+
+def _stage(key: str) -> int:
+    """base.layer3.1.conv1.weight → 3; the stem → 0; the head → 5."""
+    if key.startswith("head."):
+        return 5
+    part = key.split(".")[1]
+    return int(part[len("layer"):]) if part.startswith("layer") else 0
+
+
+def _changed(a, b, keys):
+    import torch
+
+    return {k for k in keys if not torch.equal(a[k], b[k])}
+
+
+def drive_trainer(zero_counts, counts, k1_name, work):
+    """The submodel trainer through its CLI main() on the card: --bf16 at
+    512², batch 16 files (32 rows), 3 epochs, then --resume from the best
+    checkpoint's .pth twin to 4 epochs, then --evaluate; counts zeroed
+    before each run and read after it. The Trainer's methods are wrapped to
+    observe (per-epoch weights, losses, step counts, the resumed moments),
+    not to change what they do. → report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import torch_compat
+    from synthetic_audio_detection_tpu_torch.cli import submodel_trainer
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+
+    data = os.path.join(work, "train_data")
+    write_train_tree(data)
+    seen = {"trainers": [], "epochs": [], "losses": [], "resumed": []}
+
+    def cpu_state(tr):
+        return {k: v.detach().float().cpu().clone() for k, v in tr.model.state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+
+    orig = {name: getattr(Trainer, name) for name in ("train_epoch", "validate", "resume")}
+
+    def train_epoch(self, batcher, epoch):
+        if self not in seen["trainers"]:
+            seen["trainers"].append(self)
+        before = cpu_state(self)
+        out = orig["train_epoch"](self, batcher, epoch)
+        seen["epochs"].append((epoch, self.layer3_unfrozen, before, cpu_state(self)))
+        seen["losses"].append(out["loss"])
+        return out
+
+    def validate(self, batcher, epoch):
+        if self not in seen["trainers"]:
+            seen["trainers"].append(self)
+        out = orig["validate"](self, batcher, epoch)
+        seen["losses"].append(out.val_loss)
+        return out
+
+    def resume(self, path):
+        orig["resume"](self, path)
+        mu, nu = self.state.moments()
+        seen["resumed"].append((path, self.start_epoch, int(self.state.count),
+                                {k: v.detach().cpu().clone() for k, v in mu.items()},
+                                {k: v.detach().cpu().clone() for k, v in nu.items()}))
+
+    common = ["--data-dir", data, "--Class0", "Real", "--Class1", "SynthA", "--batch-size", "16",
+              "--input-size", "512", "--bf16", "--device", "cuda", "--workers", "8",
+              "--log-dir", os.path.join(work, "runs")]
+    ck = os.path.join(work, "ck")
+    runs = [("fit", ["--epochs", "3", "--checkpoint-dir", ck]),
+            ("resume", ["--epochs", "4", "--checkpoint-dir", os.path.join(work, "ck2"),
+                        "--resume", os.path.join(ck, "best_model.ckpt.pth")]),
+            ("evaluate", ["--evaluate", "--resume", os.path.join(ck, "best_model.ckpt")])]
+    cwd = os.getcwd()
+    launches, steps, seconds = {}, {}, {}
+    for name, fn in (("train_epoch", train_epoch), ("validate", validate), ("resume", resume)):
+        setattr(Trainer, name, fn)
+    os.chdir(work)  # the CLI writes its logs/ where it runs
+    try:
+        for run, args in runs:
+            seen["trainers"].clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = submodel_trainer.main(common + args)
+            seconds[run] = time.perf_counter() - t0
+            check(rc == 0, f"trainer CLI ({run}) exit code {rc}")
+            launches[run] = counts()
+            tr = seen["trainers"][0]
+            steps[run] = (tr.train_steps_run, tr.eval_steps_run)
+            print(f"[train] {run}: {seconds[run]:.1f} s, {tr.train_steps_run} train and "
+                  f"{tr.eval_steps_run} eval steps, launches {launches[run]}", flush=True)
+            check(launches[run][k1_name] == steps[run][0],
+                  f"{run}: K1 launched {launches[run][k1_name]} times for {steps[run][0]} "
+                  "train steps (the eval step takes the GEMM mel)")
+            check(sum(v for k, v in launches[run].items() if k != k1_name) == 0,
+                  f"{run}: a kernel other than K1 launched")
+    finally:
+        os.chdir(cwd)
+        for name, fn in orig.items():
+            setattr(Trainer, name, fn)
+
+    check(steps["fit"] == (9, 3), f"fit ran {steps['fit']} train and eval steps, not (9, 3)")
+    check(steps["evaluate"] == (0, 1), f"evaluate ran {steps['evaluate']}")
+    check(all(np.isfinite(v) for v in seen["losses"]), "a train or val loss is not finite")
+    # the freeze schedule, from the per-epoch weights of the fit run
+    (e0, unf0, s0, s1), (e1, unf1, _, s2) = seen["epochs"][0], seen["epochs"][1]
+    check(e0 == 0 and not unf0 and e1 == 1 and unf1, "epochs 0 and 1 and the unfreeze at 1")
+    params = [k for k in s0 if "running" not in k]
+    running = [k for k in s0 if "running" in k]
+    frozen = [k for k in params if _stage(k) <= 3]
+    moved0 = _changed(s0, s1, params)
+    check(not moved0 & set(frozen),
+          f"epoch 0 moved frozen weights: {sorted(moved0 & set(frozen))[:3]}")
+    check(set(k for k in running if _stage(k) <= 3) <= _changed(s0, s1, running),
+          "epoch 0 left a BN running statistic of the stem or layer1-3 unchanged")
+    for blk in ("base.layer4.0.", "base.layer4.1.", "head."):
+        check(any(k.startswith(blk) for k in moved0), f"epoch 0 did not move {blk}*")
+    moved1 = _changed(s1, s2, params)
+    check(any(_stage(k) == 3 for k in moved1), "epoch 1 (layer3 unfrozen) did not move layer3")
+    check(not any(_stage(k) <= 2 for k in moved1), "epoch 1 moved the stem or layer1-2")
+    # the resume: start epoch and the .pth's moments, bit for bit
+    path, start, count, mu, nu = seen["resumed"][0]
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    check(start == int(obj["epoch"]) + 1, f"resume started at {start}, saved epoch {obj['epoch']}")
+    keys = torch_compat.trainable_param_keys(obj["state_dict"], base_prefix="base.")
+    state = obj["optimizer"]["state"]
+    check(len(keys) == len(state) and count == int(state[0]["step"]), "resumed optimizer state")
+    for i, k in enumerate(keys):
+        check(torch.equal(mu[k], state[i]["exp_avg"])
+              and torch.equal(nu[k], state[i]["exp_avg_sq"]),
+              f"resumed moments of {k} differ from the .pth")
+    check(steps["resume"] == (3 * (4 - start), 4 - start),
+          f"resume ran {steps['resume']} steps from epoch {start}")
+    print(f"[train] freeze checks: epoch 0 moved {len(moved0)} tensors (layer4 and the head) and "
+          f"every stem/layer1-3 BN statistic, no frozen weight; epoch 1 moved layer3; resume at "
+          f"epoch {start} with {len(keys)} moment pairs bit-equal to the .pth (step {count}); "
+          f"losses {['%.4f' % v for v in seen['losses']]}", flush=True)
+    return {"launches": launches, "steps": steps, "seconds": seconds,
+            "k1_launches": sum(v[k1_name] for v in launches.values())}
+
+
+def time_train_step(work, smi):
+    """The bf16 train step at 512², 32 rows, on one batch of the tree: the
+    median ms over back-to-back steps after warm-up (CUDA events), rows a
+    second, and the peak memory allocated."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.data import dataset as ds
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+    from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig, TrainConfig
+
+    cfg = TrainConfig(batch_size=16, compute_dtype="bfloat16", class1="SynthA", workers=8)
+    tr = Trainer(cfg, spec_cfg=SpectrogramConfig(mel_norm=None, out_size=512),
+                 log_dir=os.path.join(work, "runs_t"), device="cuda")
+    samples = ds.list_samples(os.path.join(work, "train_data"), "train", ["Real", "SynthA"])
+    batch = next(tr._batches(ds.WaveformBatcher(samples[:16], 16, shuffle=False, workers=8), 0,
+                             TRAIN_ROWS))
+    check(batch["audio"].dtype == torch.int16 and batch["audio"].shape[0] == TRAIN_ROWS,
+          "bf16 on the card takes the int16 transport, 32 rows")
+    out = {}
+    for phase in (1, 2):
+        if phase == 2:
+            tr._unfreeze()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(lambda: tr._train_step(tr.state, batch, tr.generator), n=20, warmup=3)
+        out[phase] = dict(ms=ms, rows_per_s=TRAIN_ROWS / ms * 1e3,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"[train] bf16 train step, 512², {TRAIN_ROWS} rows, phase {phase} (gradient stops "
+              f"at stage {4 if phase == 1 else 3}): {ms:.3f} ms median of 20 after 3 warm-up "
+              f"(CUDA events), {out[phase]['rows_per_s']:.1f} rows/s, peak "
+              f"{out[phase]['peak_gib']:.2f} GiB allocated | {smi}", flush=True)
+    return out
+
+
+def check_float32_step_cuda_vs_cpu():
+    """One float32 train step (128², 4 rows, the last weighted 0; the same
+    initial weights and batch; dropout off) on the card and on the CPU:
+    BN statistics within 1e-4·|cpu| + 1e-5, parameters within
+    1e-5·|cpu| + 1e-6 where the AdamW step is well conditioned (|g| > 1e-6,
+    from the CPU moments) and within 2·lr elsewhere (the bound of one
+    step), the loss within 1e-5 relative. TF32 is off, so only the
+    summation order differs."""
+    import copy
+
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+    from synthetic_audio_detection_tpu_torch.train import steps
+    from synthetic_audio_detection_tpu_torch.utils.config import (
+        SpecAugmentConfig,
+        SpectrogramConfig,
+        TrainConfig,
+    )
+
+    cfg = TrainConfig(batch_size=2)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        model = BinaryClassifier()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    audio = (np.random.default_rng(9).standard_normal((4, 128_000)) * 0.2).astype(np.float32)
+    audio[3] *= 1e-3
+    batch = {"audio": torch.from_numpy(audio), "label": torch.tensor([0, 1, 1, 0]),
+             "weight": torch.tensor([1.0, 1.0, 1.0, 0.0])}
+    step = steps.make_train_step(cfg, SpectrogramConfig(mel_norm=None, out_size=128),
+                                 SpecAugmentConfig(enabled=False), stop_grad_stage=4)
+    states, losses = [], []
+    for dev in ("cpu", "cuda"):
+        st = steps.create_train_state(copy.deepcopy(model).to(dev), cfg)
+        m = step(st, {k: v.to(dev) for k, v in batch.items()}, None)
+        losses.append(float(m["loss"]))
+        states.append(st)
+    cpu, gpu = states
+    mu_cpu, _ = cpu.moments()
+    a = {k: v.detach().cpu() for k, v in cpu.model.state_dict().items()}
+    b = {k: v.detach().cpu() for k, v in gpu.model.state_dict().items()}
+    worst = {"stats": 0.0, "well": 0.0, "ill": 0.0}
+    for k, ref in a.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (b[k] - ref).abs()
+        if "running" in k:
+            worst["stats"] = max(worst["stats"], float((d - 1e-4 * ref.abs() - 1e-5).max()))
+            continue
+        well = (mu_cpu[k].abs() / 0.1 > 1e-6) if k in mu_cpu else torch.ones_like(d, dtype=bool)
+        if well.any():
+            worst["well"] = max(worst["well"], float((d - 1e-5 * ref.abs() - 1e-6)[well].max()))
+        worst["ill"] = max(worst["ill"], float(d.max()) - 2 * cfg.lr)
+    rel = abs(losses[0] - losses[1]) / abs(losses[0])
+    print(f"[train] float32 step, CUDA vs CPU at 128², 4 rows: loss {losses[1]:.7f} vs "
+          f"{losses[0]:.7f} (rel {rel:.2g}); worst excess over the bound: BN statistics "
+          f"{worst['stats']:.3g}, well-conditioned parameters {worst['well']:.3g}, others "
+          f"{worst['ill']:.3g} (all must be ≤ 0)", flush=True)
+    check(rel <= 1e-5 and all(v <= 0 for v in worst.values()),
+          "float32 train step on the card disagrees with the CPU")
+    return dict(loss_rel=rel, **worst)
+
+
+def trunk_state_dicts(sds):
+    """Three sub-models sharing the stem and layer1-3 of the first (K = 1:
+    each keeps its own layer4 and head)."""
+    out = []
+    for sd in sds:
+        out.append({k: (sds[0][k] if k.startswith("base.") and _stage(k) <= 3 else v)
+                    for k, v in sd.items()})
+    return out
+
+
+def drive_trunk_serving(zero_counts, counts, sds, work, clip, n_windows, k1_name):
+    """A trunk-shared ensemble (K = 1) through the CLI, from its .pth and
+    from save_merged_native's file, against the dense layout of the same
+    weights (the pipeline with detection off): the same JSON; the trunk runs
+    once per batch (a forward hook on the loaded trunk counts it)."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+    from synthetic_audio_detection_tpu_torch.ensemble.multihead import build_ensemble
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import (
+        InferencePipeline,
+        preprocess_waveform,
+        result_json,
+        slice_waveform,
+    )
+    from synthetic_audio_detection_tpu_torch.utils.config import (
+        AudioConfig,
+        InferenceConfig,
+        SpectrogramConfig,
+    )
+
+    trunk_sds = trunk_state_dicts(sds)
+    ens = build_ensemble(trunk_sds, NAMES)
+    check(ens.shared_trunk_stages == 1 and not ens.shared_backbone, "trunk-shared layout")
+    paths = {"pth": os.path.join(work, "trunk.pth"), "native": os.path.join(work, "trunk.msgpack")}
+    serialization.save_merged_torch(paths["pth"], ens)
+    serialization.save_merged_native(paths["native"], ens)
+    audio = AudioConfig(overlap=0.0, silence_threshold=1e-3)
+    windows, stamps = slice_waveform(preprocess_waveform(clip, audio), audio)
+    dense = InferencePipeline(build_ensemble(trunk_sds, NAMES, detect_shared_backbone=False),
+                              audio=audio, spec=SpectrogramConfig.inference(out_size=512),
+                              infer=InferenceConfig(), compute_dtype=torch.bfloat16, device="cuda")
+    want = json.loads(result_json(clip, dense.analyze_windows(windows, stamps)))
+    batches = -(-n_windows // BATCH)
+    passes = [0]
+    load = serialization.load_merged
+
+    def counted(path, backbone="resnet18"):
+        e = load(path, backbone)
+        e.trunk.register_forward_hook(lambda *_: passes.__setitem__(0, passes[0] + 1))
+        return e
+
+    out = {}
+    serialization.load_merged = counted
+    try:
+        for fmt, path in paths.items():
+            passes[0] = 0
+            zero_counts()
+            res, sec = run_cli(["--merged-model", path, "--audio", clip,
+                                "--output-json", os.path.join(work, f"trunk_{fmt}.json"),
+                                "--bf16", "--input-size", "512", "--device", "cuda"])
+            launches = counts()
+            print(f"[trunk] {fmt}: {sec:.3f} s for {n_windows} windows (CLI wall), trunk passes "
+                  f"{passes[0]} for {batches} batches, launches {launches}; JSON equal to the "
+                  f"dense layout's: {res == want}", flush=True)
+            check(passes[0] == batches, f"{fmt}: the trunk ran {passes[0]} times, not {batches}")
+            check(launches[k1_name] == batches and sum(launches.values()) == batches,
+                  f"{fmt}: launches {launches}")
+            check(res == want, f"{fmt}: the trunk-shared JSON differs from the dense layout's")
+            out[fmt] = dict(seconds=sec, trunk_passes=passes[0], launches=launches)
+    finally:
+        serialization.load_merged = load
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -978,6 +1400,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     k1_report = check_k1(k1, SpectrogramConfig.inference())
+    k1_train = check_k1_train(k1, smi)
     t0 = time.perf_counter()
     k2_report = check_k2(k2, k1, SpectrogramConfig.inference(), k1_report["library_ms"])
     print(f"[kernels] K2 checks took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1155,6 +1578,17 @@ def main() -> int:
             print(f"[conv] pipeline {route:8s} 150 windows at 512², batch 128: "
                   f"{' / '.join(f'{v:.1f}' for v in vals)} windows/s (median of 5 each)",
                   flush=True)
+
+        # 8. the training path
+        t0 = time.perf_counter()
+        train = drive_trainer(zero_counts, counts, k1.name, work)
+        train["step"] = time_train_step(work, smi)
+        train["f32_vs_cpu"] = check_float32_step_cuda_vs_cpu()
+        print(f"[train] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+        # 9. trunk-shared serving
+        trunk = drive_trunk_serving(zero_counts, counts, sds, work,
+                                    os.path.join(work, "10min.wav"), 150, k1.name)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1166,7 +1600,10 @@ def main() -> int:
         "route": "cuda",
         "source": cuda_melspec.SOURCE,
         "replaces": cuda_melspec.REPLACES,
-        "launches": sum(c[k1.name] for c in cli_launches.values()),
+        "launches": (sum(c[k1.name] for c in cli_launches.values()) + train["k1_launches"]
+                     + sum(t["launches"][k1.name] for t in trunk.values())),
+        "serving_launches": sum(c[k1.name] for c in cli_launches.values()),
+        "train_launches": train["k1_launches"],
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -1188,6 +1625,16 @@ def main() -> int:
                          "dB (on z-scores over the window's dB std), on z-scores and dB",
         "lowp_tail_max_abs_diff_vs_f32_tail": z["lowp"]["err_vs_f32_tail"],
         "lowp_tail_ms": z["lowp"]["ms"],
+        "train_config": {
+            "what": f"SpectrogramConfig.train() (mel_norm None), dB only, [{TRAIN_ROWS}, 128000]",
+            "max_abs_err_db": k1_train["errs"],
+            "tol_db": TOL_DB,
+            "ms": k1_train["ms"],
+            "ms_int16_in": k1_train["ms_int16"],
+            "plain_ms": k1_train["plain_ms"],
+            "bound_ms": k1_train["bound"][0],
+            "bound_by": k1_train["bound"][1],
+        },
     }, {
         "name": "K2 melspec_strip",
         "route": "cuda",
@@ -1287,6 +1734,14 @@ def main() -> int:
             "library_device_ms": r["library_device_ms"],
             "library": library[pid],
         })
+    print(json.dumps({"train_step": {"ms": train["step"][1]["ms"],
+                                     "rows_per_s": train["step"][1]["rows_per_s"],
+                                     "peak_gib": train["step"][1]["peak_gib"],
+                                     "phase2": train["step"][2],
+                                     "what": f"bf16, ResNet-18, 512², {TRAIN_ROWS} rows, phase 1",
+                                     "f32_vs_cpu": train["f32_vs_cpu"],
+                                     "cli_seconds": train["seconds"]},
+                      "trunk_serving": trunk}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,21 +1,33 @@
-"""Synthetic Audio Detection — PyTorch/CUDA port of the serving path.
+"""Synthetic Audio Detection — PyTorch/CUDA port of the serving path and the
+submodel trainer.
 
 A second package beside ``synthetic_audio_detection_tpu`` (the JAX
-reference, which stays as it is). It serves a merged ResNet ensemble on one
-NVIDIA GPU:
+reference, which stays as it is). On one NVIDIA GPU it serves a merged
+ResNet ensemble:
 
     cli/inference_runner.py → infer/pipeline.py:InferencePipeline
       → ops/cuda_melspec.py (the factored log-mel kernel, csrc/) or the
         plain PyTorch front end in ops/melspec.py
-      → ensemble/multihead.py (shared or dense ResNet backbones, batched
-        MLP heads; the shared backbone's 3x3 convs optionally through
-        ops/cuda_conv.py, the conv + BN + ReLU kernel in csrc/)
+      → ensemble/multihead.py (shared, trunk-shared or dense ResNet
+        backbones, batched MLP heads; the shared backbone's 3x3 convs
+        optionally through ops/cuda_conv.py, the conv + BN + ReLU kernel
+        in csrc/)
       → decision rule → reference JSON
+
+and trains one binary sub-model:
+
+    cli/submodel_trainer.py → train/trainer.py:Trainer
+      → data/dataset.py (or data/grain_pipeline.py) → train/steps.py
+        (the log-mel kernel in dB-only mode under bf16, SpecAugment and
+        crop, the flax-BatchNorm ResNet on cuDNN, optax's AdamW)
+      → checkpoints/serialization.py (native msgpack and the .pth twin)
 
 The port imports ``torch``, ``numpy`` and ``scipy``, never ``jax`` and
 nothing of the reference package: it keeps its own copies of the host
-modules it needs (``audio/decode``, ``audio/wavio``, ``utils/config``,
-``utils/calibration``, ``checkpoints/torch_compat``).
+modules it needs (``audio/decode``, ``audio/wavio``, ``audio/resample``,
+``utils/config``, ``utils/calibration``, ``utils/metrics``,
+``utils/tb_writer``, ``checkpoints/torch_compat``, ``train/plateau``,
+``data/dataset``).
 """
 
 from __future__ import annotations

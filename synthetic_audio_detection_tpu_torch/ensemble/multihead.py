@@ -1,17 +1,19 @@
 """Multi-head ensemble (the reference package's ``ensemble/multihead.py``).
 
 N binary sub-models vote: output [B, N+1] = [syn_1..syn_N, mean(real_1..N)]
-with index 0 = Real and 1 = Synthetic per sub-model. Two layouts:
+with index 0 = Real and 1 = Synthetic per sub-model. Three layouts:
 
 - shared backbone: every sub-model's backbone is the same (what reference
   merged checkpoints hold), so it runs once and only the heads differ;
+- shared trunk: the sub-models agree on the stem and every stage but the
+  last K (the joint trainer's per-head-stages artifacts), so the trunk
+  runs once and each head runs its own K-stage tail on the trunk's
+  features (``trunk_shared_stages``, as the reference detects it);
 - dense: N independent backbones, one pass each.
 
 The N MLP heads always run batched: their weights are stacked with each
 eval BatchNorm folded into the Linear before it, and each layer is one
-``torch.baddbmm`` over the head axis. Checkpoints whose sub-models share
-only a trunk (the reference's trunk-shared layout) run in the dense layout
-here: the same numbers, more backbone work.
+``torch.baddbmm`` over the head axis.
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ from synthetic_audio_detection_tpu_torch.models.resnet import ResNet, create_res
 
 class MultiHeadEnsemble(nn.Module):
     """``backbones`` holds one module (shared layout) or one per head
-    (dense). ``class_names`` = [syn_1, ..., syn_N, real]; a generic-head
+    (dense, or with ``trunk`` given, each head's tail of stages
+    ``first_stage``.. on the trunk's features).
+    ``class_names`` = [syn_1, ..., syn_N, real]; a generic-head
     ensemble carries one extra head (the generic Real-vs-any-synthetic
     vote) after the specialists. ``dtype`` is the compute dtype; parameters
     stay float32 and compute-dtype copies are made once, at first use."""
@@ -41,8 +45,10 @@ class MultiHeadEnsemble(nn.Module):
     def __init__(self, backbones: Sequence[ResNet], heads: Sequence[BinaryHead],
                  class_names: Sequence[str], backbone: str = "resnet18",
                  calibration: Optional[Dict[str, Any]] = None,
-                 generic_head: bool = False, dtype: torch.dtype = torch.float32):
+                 generic_head: bool = False, dtype: torch.dtype = torch.float32,
+                 trunk: Optional[ResNet] = None):
         super().__init__()
+        self.trunk = trunk
         self.backbones = nn.ModuleList(backbones)
         self.heads = nn.ModuleList(heads)
         self.class_names = list(class_names)
@@ -55,6 +61,8 @@ class MultiHeadEnsemble(nn.Module):
                              f"({self.class_names}, generic_head={generic_head})")
         if len(self.backbones) not in (1, self.num_heads):
             raise ValueError(f"{len(self.backbones)} backbones for {self.num_heads} heads")
+        if trunk is not None and len(self.backbones) != self.num_heads:
+            raise ValueError(f"a shared trunk needs one tail per head, got {len(self.backbones)}")
         self._compiled: Dict[tuple, Any] = {}
         self.eval()
 
@@ -64,11 +72,18 @@ class MultiHeadEnsemble(nn.Module):
 
     @property
     def shared_backbone(self) -> bool:
-        return len(self.backbones) == 1
+        return len(self.backbones) == 1 and self.trunk is None
+
+    @property
+    def shared_trunk_stages(self) -> int:
+        """K, the per-head stages after the shared trunk (0: no trunk)."""
+        if self.trunk is None:
+            return 0
+        return len(self.trunk.stage_sizes) - self.trunk.last_stage
 
     @property
     def in_channels(self) -> int:
-        return self.backbones[0].in_channels
+        return (self.trunk or self.backbones[0]).in_channels
 
     @property
     def synthetic_names(self) -> List[str]:
@@ -87,7 +102,9 @@ class MultiHeadEnsemble(nn.Module):
         out = []
         for i, head in enumerate(self.heads):
             base = self.backbones[0 if self.shared_backbone else i]
-            sd = {f"base.{k}": v for k, v in base.state_dict().items()}
+            sd = {} if self.trunk is None else {
+                f"base.{k}": v for k, v in self.trunk.state_dict().items()}
+            sd.update({f"base.{k}": v for k, v in base.state_dict().items()})
             sd.update({f"head.{k}": v for k, v in head.state_dict().items()})
             out.append(sd)
         return out
@@ -108,9 +125,17 @@ class MultiHeadEnsemble(nn.Module):
         if fast:
             return self._cached(("fast", i, conv3x3_max_channels), lambda: FastResNet(
                 self.backbones[i], self.dtype, conv3x3_max_channels))
+        return self._compute_copy(("copy", i), self.backbones[i])
+
+    def compute_trunk(self) -> ResNet:
+        """The shared trunk in the compute dtype (the plain ResNet, as the
+        reference runs it)."""
+        return self._compute_copy(("trunk",), self.trunk)
+
+    def _compute_copy(self, key: tuple, net: ResNet) -> ResNet:
         if self.dtype == torch.float32:
-            return self.backbones[i]
-        return self._cached(("copy", i), lambda: copy.deepcopy(self.backbones[i]).to(
+            return net
+        return self._cached(key, lambda: copy.deepcopy(net).to(
             dtype=self.dtype, memory_format=torch.channels_last))
 
     def stacked_heads(self) -> List[tuple]:
@@ -170,6 +195,10 @@ def ensemble_per_head_logits(ens: MultiHeadEnsemble, x: torch.Tensor,
         feats = ens.compute_backbone(0, fast=fast,
                                      conv3x3_max_channels=conv3x3_max_channels)(x)
         pooled = feats.mean(dim=(2, 3)).expand(n, -1, -1)
+    elif ens.trunk is not None:
+        feats = ens.compute_trunk()(x)
+        pooled = torch.stack([ens.compute_backbone(i)(feats).mean(dim=(2, 3))
+                              for i in range(n)])
     else:
         pooled = torch.stack([ens.compute_backbone(i)(x).mean(dim=(2, 3)) for i in range(n)])
     return heads_forward(ens.stacked_heads(), pooled)
@@ -208,6 +237,34 @@ def backbones_identical(state_dicts: Sequence[Mapping[str, torch.Tensor]],
     return True
 
 
+def _stage_of(key: str) -> int:
+    """The stage of a backbone key (``layer3.1.conv1.weight`` → 3), 0 for
+    the stem."""
+    return int(key.split(".")[0][len("layer"):]) if key.startswith("layer") else 0
+
+
+def trunk_shared_stages(state_dicts: Sequence[Mapping[str, torch.Tensor]],
+                        atol: float = 0.0) -> int:
+    """The smallest K (the largest trunk) such that every ``base.*`` tensor
+    outside the last K stages agrees across the sub-models (allclose at
+    rtol 1e-5 and ``atol``, as ``backbones_identical``), trying K = 1
+    first as the reference does; 0 when even the stem or the first stages
+    differ."""
+    if len(state_dicts) <= 1:
+        return 0
+    bases = [_base_state(sd) for sd in state_dicts]
+    n_stages = max((_stage_of(k) for k in bases[0]), default=0)
+    if n_stages < 2:
+        return 0
+    for k in range(1, n_stages):
+        trunk = [{key: v for key, v in b.items() if _stage_of(key) <= n_stages - k}
+                 for b in bases]
+        if backbones_identical([{f"base.{key}": v for key, v in t.items()} for t in trunk],
+                               atol):
+            return k
+    return 0
+
+
 def _load(module: nn.Module, sd: Mapping[str, torch.Tensor], what: str) -> None:
     """load_state_dict that tolerates only missing ``num_batches_tracked``
     (state dicts converted from the JAX package have none)."""
@@ -221,19 +278,36 @@ def _load(module: nn.Module, sd: Mapping[str, torch.Tensor], what: str) -> None:
 def build_ensemble(state_dicts: Sequence[Mapping[str, torch.Tensor]],
                    class_names: Sequence[str], backbone: str = "resnet18",
                    detect_shared_backbone: bool = True, generic_head: bool = False,
-                   calibration: Optional[Dict[str, Any]] = None) -> MultiHeadEnsemble:
+                   calibration: Optional[Dict[str, Any]] = None,
+                   shared_trunk_stages: Optional[int] = None) -> MultiHeadEnsemble:
     """Sub-model state dicts (``base.*`` + ``head.<index>.*``) → ensemble.
-    The shared layout is chosen when every backbone agrees."""
+    The shared layout is chosen when every backbone agrees; otherwise the
+    shared-trunk layout when ``trunk_shared_stages`` finds a trunk, or
+    with ``shared_trunk_stages`` K > 0 given (a checkpoint's record), the
+    first sub-model's trunk without the scan."""
     if generic_head and len(state_dicts) != len(class_names):
         raise ValueError(
             f"generic-head ensemble needs {len(class_names)} stacked heads "
             f"(specialists + generic), got {len(state_dicts)}")
     shared = detect_shared_backbone and backbones_identical(state_dicts)
+    trunk_k = 0
+    if not shared and shared_trunk_stages is not None:
+        trunk_k = shared_trunk_stages
+    elif not shared and detect_shared_backbone:
+        trunk_k = trunk_shared_stages(state_dicts)
     in_channels = int(torch.as_tensor(state_dicts[0]["base.conv1.weight"]).shape[1])
+    trunk, first = None, 1
+    if trunk_k:
+        t_last = len(create_resnet(backbone, in_channels).stage_sizes) - trunk_k
+        trunk = create_resnet(backbone, in_channels, last_stage=t_last)
+        _load(trunk, {k: v for k, v in _base_state(state_dicts[0]).items()
+                      if _stage_of(k) <= t_last}, "shared trunk")
+        first = t_last + 1
     backbones = []
     for i, sd in enumerate(state_dicts[:1] if shared else state_dicts):
-        net = create_resnet(backbone, in_channels)
-        _load(net, _base_state(sd), f"sub-model {i} backbone")
+        net = create_resnet(backbone, in_channels, first_stage=first)
+        _load(net, {k: v for k, v in _base_state(sd).items() if _stage_of(k) >= first
+                    or first == 1}, f"sub-model {i} backbone")
         backbones.append(net)
     heads = []
     for i, sd in enumerate(state_dicts):
@@ -242,14 +316,16 @@ def build_ensemble(state_dicts: Sequence[Mapping[str, torch.Tensor]],
               f"sub-model {i} head")
         heads.append(head)
     return MultiHeadEnsemble(backbones, heads, class_names, backbone,
-                             calibration=calibration, generic_head=generic_head)
+                             calibration=calibration, generic_head=generic_head, trunk=trunk)
 
 
-def _rebuild(ens: MultiHeadEnsemble, backbones=None, dtype=None) -> MultiHeadEnsemble:
+def _rebuild(ens: MultiHeadEnsemble, backbones=None, dtype=None,
+             trunk=None) -> MultiHeadEnsemble:
     return MultiHeadEnsemble(
         list(ens.backbones) if backbones is None else backbones, list(ens.heads),
         ens.class_names, ens.backbone_name, calibration=ens.calibration,
-        generic_head=ens.generic_head, dtype=ens.dtype if dtype is None else dtype)
+        generic_head=ens.generic_head, dtype=ens.dtype if dtype is None else dtype,
+        trunk=ens.trunk if trunk is None else trunk)
 
 
 def with_dtype(ens: MultiHeadEnsemble, dtype: torch.dtype) -> MultiHeadEnsemble:
@@ -262,16 +338,20 @@ def with_dtype(ens: MultiHeadEnsemble, dtype: torch.dtype) -> MultiHeadEnsemble:
 def fold_to_mono(ens: MultiHeadEnsemble) -> MultiHeadEnsemble:
     """Exact stem transform: the serving input repeats one channel three
     times, so summing conv1's kernel over its input axis gives a 1-channel
-    ensemble with the same logits. Feed it [B, 1, H, W]."""
-    backbones = []
-    for net in ens.backbones:
-        mono = copy.deepcopy(net)
+    ensemble with the same logits. Feed it [B, 1, H, W]. The stem is the
+    trunk's where the ensemble has one."""
+
+    def mono(net: ResNet) -> ResNet:
+        out = copy.deepcopy(net)
         conv = nn.Conv2d(1, net.conv1.out_channels, 7, 2, 3, bias=False).to(net.conv1.weight)
         conv.weight.copy_(fold_rgb_conv(net.conv1.weight))
-        mono.conv1 = conv
-        mono.in_channels = 1
-        backbones.append(mono)
-    return _rebuild(ens, backbones=backbones)
+        out.conv1 = conv
+        out.in_channels = 1
+        return out
+
+    if ens.trunk is not None:
+        return _rebuild(ens, trunk=mono(ens.trunk))
+    return _rebuild(ens, backbones=[mono(net) for net in ens.backbones])
 
 
 # ---------------------------------------------------------------------------

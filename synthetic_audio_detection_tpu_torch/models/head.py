@@ -4,14 +4,39 @@ reference package's ``models/head.py``).
 AdaptiveAvgPool2d(1) → Flatten → Linear(F, 512) → BN → ReLU → Dropout(0.5)
 → Linear(512, 256) → BN → ReLU → Dropout(0.3) → Linear(256, 2), as one
 ``nn.Sequential`` whose indices (head.2, head.3, head.6, head.7, head.10)
-are the reference checkpoint's keys.
+are the reference checkpoint's keys. In train mode the BatchNorms follow
+flax (``FlaxBatchNorm1d``) and each dropout draws its mask from the
+generator that ``set_dropout_generator`` hands it (the train step's), as
+flax's ``nn.Dropout``: keep with probability 1 − p, scale by 1 / (1 − p).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
 import torch.nn as nn
 
-from synthetic_audio_detection_tpu_torch.models.resnet import BN_EPS
+from synthetic_audio_detection_tpu_torch.models.resnet import BN_EPS, BN_MOMENTUM, FlaxBatchNorm1d
+
+
+class StepDropout(nn.Dropout):
+    """Dropout whose mask comes from ``self.generator`` (a torch.Generator
+    on the input's device; None: PyTorch's default generator)."""
+
+    generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    for m in model.modules():
+        if isinstance(m, StepDropout):
+            m.generator = generator
 
 
 class BinaryHead(nn.Sequential):
@@ -20,8 +45,9 @@ class BinaryHead(nn.Sequential):
         layers = [nn.AdaptiveAvgPool2d(1), nn.Flatten()]
         width = num_features
         for h, rate in zip(hidden, dropout):
-            layers += [nn.Linear(width, h), nn.BatchNorm1d(h, eps=BN_EPS), nn.ReLU(),
-                       nn.Dropout(rate)]
+            layers += [nn.Linear(width, h),
+                       FlaxBatchNorm1d(h, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM), nn.ReLU(),
+                       StepDropout(rate)]
             width = h
         layers.append(nn.Linear(width, num_outputs))
         super().__init__(*layers)

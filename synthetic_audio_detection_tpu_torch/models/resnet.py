@@ -8,10 +8,16 @@ NCHW, with timm/torchvision parameter names (``conv1``, ``bn1``,
 feature map (timm ``forward_features``). The space-to-depth stage-1 blocks
 of the reference package are not ported: they work around the TPU conv
 emitter.
+
+In train mode BatchNorm follows flax, as the reference trains
+(``FlaxBatchNorm2d``), and ``stop_grad_stage`` runs the stages before it
+without autograd, as the reference's ``jax.lax.stop_gradient`` at that
+stage does; their BN statistics still update.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -28,10 +34,47 @@ RESNET_SPECS = {
 }
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9  # flax's convention: new = 0.9·old + 0.1·batch (torch's 0.1)
+
+
+class _FlaxStats:
+    """Train-mode BatchNorm as flax computes it: the batch mean and the
+    *biased* variance, E[x²] − E[x]² clipped at 0, in float32 at least
+    (bf16 input promoted); x normalized as (x − mean)·(rsqrt(var + eps)·
+    scale) + bias at that precision and returned in the input dtype;
+    running statistics 0.9·old + 0.1·batch, with the biased variance
+    (``nn.BatchNorm*d`` uses the unbiased one). Eval mode, and ``momentum=None`` (torch's cumulative
+    average, for code that estimates statistics the torch way), are
+    PyTorch's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.momentum is None:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.ndim))
+        view = [1, -1] + [1] * (x.ndim - 2)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        if self.track_running_stats:
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = (xf - mean.view(view)) * mul.view(view) + self.bias.to(xf.dtype).view(view)
+        return y.to(x.dtype)
+
+
+class FlaxBatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
+class FlaxBatchNorm1d(_FlaxStats, nn.BatchNorm1d):
+    pass
 
 
 def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS)
+    return FlaxBatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
 
 
 class BasicBlock(nn.Module):
@@ -79,11 +122,14 @@ class ResNet(nn.Module):
     ``first_stage``/``last_stage`` (1-based, inclusive) build only those
     stages; the stem exists only when first_stage is 1. A sliced model keeps
     the full model's parameter names (``layer{k}.{b}.*``), so a trunk and a
-    tail state dict together are the full backbone's."""
+    tail state dict together are the full backbone's. ``stop_grad_stage``
+    (1-based, 0 off; the train step sets it) runs everything before that
+    stage under ``torch.no_grad()`` in train mode."""
 
     def __init__(self, block: str, stage_sizes, in_channels: int = 3,
                  first_stage: int = 1, last_stage: Optional[int] = None):
         super().__init__()
+        self.stop_grad_stage = 0
         last = len(stage_sizes) if last_stage is None else last_stage
         if not 1 <= first_stage <= last <= len(stage_sizes):
             raise ValueError(f"stage slice [{first_stage}, {last}] out of range for "
@@ -116,9 +162,14 @@ class ResNet(nn.Module):
         self.num_features = inplanes
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.first_stage == 1:
-            x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
-        for stage in range(self.first_stage, self.last_stage + 1):
+        boundary = self.stop_grad_stage if self.training else 0
+        frozen = torch.no_grad() if boundary else contextlib.nullcontext()
+        with frozen:
+            if self.first_stage == 1:
+                x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+            for stage in range(self.first_stage, min(boundary, self.last_stage + 1)):
+                x = getattr(self, f"layer{stage}")(x)
+        for stage in range(max(boundary, self.first_stage), self.last_stage + 1):
             x = getattr(self, f"layer{stage}")(x)
         return x
 

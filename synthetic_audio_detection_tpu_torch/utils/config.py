@@ -1,8 +1,10 @@
-"""The serving configuration: waveform, front end and decision settings.
+"""The configuration: waveform, front end, training and decision settings.
 
 The port's own copy of the reference package's ``utils/config.py``, cut to
-the names serving uses (``AudioConfig``, ``SpectrogramConfig``,
-``InferenceConfig``, ``parse_input_size``). The fields, their defaults and
+the names serving and the submodel trainer use (``AudioConfig``,
+``SpectrogramConfig``, ``SpecAugmentConfig``, ``TrainConfig``,
+``InferenceConfig``, ``parse_input_size``, ``add_wave_augment_args``,
+``spec_augment_from_args``). The fields, their defaults and
 the ``inference()``/``train()``/``legacy()`` presets are the reference's;
 ``tests/test_torch_host.py`` pins them to it. The port's functions read
 these objects by attribute only, so a reference config object works in
@@ -12,7 +14,7 @@ their place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -112,6 +114,110 @@ def parse_input_size(value) -> int:
     if n < 0:
         raise ValueError(f"invalid input size {value!r}")
     return n
+
+
+@dataclass(frozen=True)
+class SpecAugmentConfig:
+    """Train-time augmentation: one frequency and one time mask on the dB
+    plane (the reference's FrequencyMasking(15) and TimeMasking(35)), and
+    the on-device waveform augmentation, off unless its probabilities are
+    set (``--wave-augment``)."""
+
+    freq_mask_param: int = 15
+    time_mask_param: int = 35
+    enabled: bool = True
+    # waveform-domain augmentation (applied before the mel, train mode only)
+    wave_noise_prob: float = 0.0       # P(add white noise) per example
+    wave_snr_db: Tuple[float, float] = (5.0, 30.0)
+    wave_lowpass_prob: float = 0.0     # P(random low-pass channel) per example
+    wave_lowpass_hz: Tuple[float, float] = (4000.0, 15000.0)
+    wave_taps: int = 63                # FIR length (odd)
+
+    @property
+    def wave_enabled(self) -> bool:
+        return self.wave_noise_prob > 0.0 or self.wave_lowpass_prob > 0.0
+
+
+def add_wave_augment_args(p) -> None:
+    """The trainer CLI's flags for the on-device waveform augmentation
+    (read by ``spec_augment_from_args``)."""
+    g = p.add_argument_group("waveform augmentation (train-time, on device)")
+    g.add_argument("--wave-augment", action="store_true",
+                   help="Enable fresh per-step waveform augmentation inside "
+                   "the train step: additive white noise at a random SNR and "
+                   "a random low-pass channel")
+    g.add_argument("--wave-noise-prob", type=float, default=0.5,
+                   help="P(add noise) per example (with --wave-augment)")
+    g.add_argument("--wave-snr-db", nargs=2, type=float, default=[5.0, 30.0],
+                   metavar=("MIN", "MAX"), help="Noise SNR range in dB")
+    g.add_argument("--wave-lowpass-prob", type=float, default=0.25,
+                   help="P(low-pass channel) per example (with --wave-augment)")
+    g.add_argument("--wave-lowpass-hz", nargs=2, type=float,
+                   default=[4000.0, 15000.0], metavar=("MIN", "MAX"),
+                   help="Low-pass cutoff range in Hz")
+
+
+def spec_augment_from_args(args) -> SpecAugmentConfig:
+    """SpecAugmentConfig from trainer-CLI args: the reference's masking,
+    plus the waveform fields when --wave-augment is set."""
+    if not getattr(args, "wave_augment", False):
+        return SpecAugmentConfig()
+    return SpecAugmentConfig(
+        wave_noise_prob=args.wave_noise_prob,
+        wave_snr_db=tuple(args.wave_snr_db),
+        wave_lowpass_prob=args.wave_lowpass_prob,
+        wave_lowpass_hz=tuple(args.wave_lowpass_hz),
+    )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (the reference trainer's flags and
+    constants: AdamW at weight decay 0.01, clip 0.5, ReduceLROnPlateau
+    0.5/2, layer3 unfrozen at epochs // 3)."""
+
+    data_dir: str = "./dataset"
+    batch_size: int = 32
+    epochs: int = 100
+    lr: float = 1e-3
+    weight_decay: float = 0.01
+    grad_clip_norm: float = 0.5
+    seed: int = 42
+    workers: int = 20
+    checkpoint_dir: str = "./checkpoints"
+    resume: str = ""
+    class0: str = "Real"
+    class1: str = "Class1"
+    # other generators' class folders trained as class0 (hard negatives)
+    hard_negative_classes: tuple = ()
+    # ReduceLROnPlateau(mode='min', factor=0.5, patience=2)
+    plateau_factor: float = 0.5
+    plateau_patience: int = 2
+    # layer3 unfreezes at epochs // 3
+    unfreeze_layer3_at_fraction: float = 1.0 / 3.0
+    log_every_steps: int = 100
+    # True: the reference's optimizer never holds layer3, so its unfreeze
+    # changes no weight; False trains layer3 after the unfreeze
+    reference_quirk_frozen_layer3: bool = False
+    # 'threads' (data/dataset.py) or 'grain' (worker processes,
+    # data/grain_pipeline.py)
+    data_backend: str = "threads"
+    # 'native' (msgpack + the .pth twin); 'orbax' is not ported
+    checkpoint_backend: str = "native"
+    # the space-to-depth stage 1 is not ported: must stay False
+    s2d_stage1: bool = False
+    # no backward pass through the frozen stages
+    stop_grad_boundary: bool = True
+    # compute dtype of the train step ('float32' | 'bfloat16'); parameters,
+    # optimizer state, loss and BN statistics stay float32
+    compute_dtype: str = "float32"
+    # the step's mel DFT: '' = the default ('pallas', the log-mel kernel,
+    # under bf16 on the card; 'gemm' otherwise), or 'fft' | 'gemm' |
+    # 'factored' | 'pallas'
+    mel_dft: str = ""
+    # waveform transport: '' = auto (int16 under bf16 on the card, float32
+    # otherwise), or 'float32' | 'int16'
+    transport_dtype: str = ""
 
 
 @dataclass(frozen=True)

@@ -26,6 +26,7 @@ from synthetic_audio_detection_tpu_torch.ops import (
     melspec,
 )
 from synthetic_audio_detection_tpu_torch.tools import helper_bisect
+from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
 from synthetic_audio_detection_tpu_torch.utils.config import InferenceConfig, SpectrogramConfig
 
 CFG = SpectrogramConfig(mel_norm="slaney")
@@ -577,3 +578,133 @@ def test_probe_kernel_raises_instead_of_falling_back():
         cuda_probes.dyn_slice_dot(x, w)
     with pytest.raises(ValueError, match="w on"):
         cuda_probes.dyn_slice_dot(x.contiguous(), w.cpu())
+
+
+# ---------------------------------------------------------------------------
+# The training path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pcm", [False, True])
+@pytest.mark.parametrize("standardize", [False, True])
+def test_factored_mel_kernel_under_the_training_config(standardize, pcm):
+    """K1 with SpectrogramConfig.train() (mel_norm None) at the trainer's 32
+    rows, float32 or int16, dB only with 8 zero tail rows (a padded last
+    batch) or standardized: 1e-2 dB, 1e-3 on z-scores, one launch."""
+    _cuda_or_skip()
+    cfg = SpectrogramConfig.train()
+    x = _waves(32, 128_000, seed=3)
+    if not standardize:
+        x[24:] = 0.0
+    if pcm:
+        x = torch.round(x * 32768).clamp(-32768, 32767).to(torch.int16)
+    before = cuda_melspec.KERNEL.launches
+    got = cuda_melspec.fused_log_mel_factored(x, cfg, standardize=standardize)
+    ref = melspec.log_mel_factored(cuda_melspec.dequantize(x), cfg, standardize=standardize,
+                                   dft_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-3 if standardize else 1e-2)
+
+
+def _train_batch(rows, samples, device, seed=9):
+    audio = (np.random.default_rng(seed).standard_normal((rows, samples)) * 0.2).astype(np.float32)
+    audio[-1] *= 1e-3
+    return {"audio": torch.from_numpy(audio).to(device),
+            "label": torch.tensor([0, 1] * (rows // 2), device=device),
+            "weight": torch.tensor([1.0] * (rows - 1) + [0.0], device=device)}
+
+
+@pytest.mark.cuda
+def test_float32_train_step_on_the_card_matches_the_cpu():
+    """One float32 step (128², 4 rows, dropout off) from the same weights:
+    BN statistics within 1e-4 relative + 1e-5, parameters within 1e-5
+    relative + 1e-6 where the AdamW step is well conditioned and within one
+    step's bound (2·lr) elsewhere; TF32 stays off only inside the step."""
+    _cuda_or_skip()
+    import copy
+
+    from synthetic_audio_detection_tpu_torch.train import steps
+    from synthetic_audio_detection_tpu_torch.utils.config import SpecAugmentConfig, TrainConfig
+
+    cfg = TrainConfig(batch_size=2)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        model = BinaryClassifier()
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    step = steps.make_train_step(cfg, SpectrogramConfig(mel_norm=None, out_size=128),
+                                 SpecAugmentConfig(enabled=False), stop_grad_stage=4)
+    tf32 = torch.backends.cudnn.allow_tf32
+    states = []
+    for dev in ("cpu", "cuda"):
+        st = steps.create_train_state(copy.deepcopy(model).to(dev), cfg)
+        step(st, _train_batch(4, 128_000, dev), None)
+        states.append(st)
+    assert torch.backends.cudnn.allow_tf32 == tf32
+    mu, _ = states[0].moments()
+    a, b = (s.model.state_dict() for s in states)
+    for k, ref in a.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (b[k].cpu() - ref).abs()
+        if "running" in k:
+            assert bool((d <= 1e-4 * ref.abs() + 1e-5).all()), k
+            continue
+        well = mu[k].abs() / 0.1 > 1e-6
+        assert bool((d <= 1e-5 * ref.abs() + 1e-6)[well].all()), k
+        assert float(d.max()) <= 2 * cfg.lr + 1e-6, k
+
+
+@pytest.mark.cuda
+def test_bf16_trainer_steps_launch_the_kernel(tmp_path):
+    """On the card --bf16 selects K1 and the int16 transport: one K1 launch
+    per train step and none per eval step (its mel is the float32 GEMM
+    mel, as the reference's), finite loss, the moments move."""
+    _cuda_or_skip()
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+    from synthetic_audio_detection_tpu_torch.utils.config import TrainConfig
+
+    tr = Trainer(TrainConfig(batch_size=2, compute_dtype="bfloat16", class1="SynA"),
+                 spec_cfg=SpectrogramConfig(mel_norm=None, out_size=128),
+                 log_dir=str(tmp_path / "runs"), device="cuda")
+    assert tr._dft == "pallas" and tr._transport == "int16"
+    batch = _train_batch(4, 128_000, "cuda")
+    batch["audio"] = torch.round(batch["audio"] * 32768).to(torch.int16)
+    before = cuda_melspec.KERNEL.launches
+    m = tr._train_step(tr.state, batch, tr.generator)
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 1
+    stats = tr._eval_step(tr.model, batch)
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 1
+    assert bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0
+    assert int(tr.state.count) == 1 and max(float(t.abs().max()) for t in tr.state.mu) > 0
+    assert float(stats["count"]) == 3.0
+
+
+@pytest.mark.cuda
+def test_trunk_shared_ensemble_on_the_card_matches_the_cpu():
+    """A trunk-shared ensemble (K = 1) in float32 on the card against the
+    CPU, 1e-3 on logits, one trunk pass."""
+    _cuda_or_skip()
+    sds = []
+    for seed in range(3):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            sds.append(BinaryClassifier().state_dict())
+    sds = [{k: (sds[0][k] if k.startswith("base.") and not k.startswith("base.layer4") else v)
+            for k, v in sd.items()} for sd in sds]
+    cpu = build_ensemble(sds, ["SynA", "SynB", "SynC", "Real"])
+    assert cpu.shared_trunk_stages == 1
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 3, 128, 128))
+                         .astype(np.float32))
+    want = cpu(x)
+    gpu = build_ensemble(sds, ["SynA", "SynB", "SynC", "Real"]).cuda()
+    passes = []
+    gpu.trunk.register_forward_hook(lambda *_: passes.append(1))
+    with exact_float32():
+        got = gpu(x.cuda()).cpu()
+    assert len(passes) == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)

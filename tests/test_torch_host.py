@@ -1,7 +1,8 @@
 """The port's own copies of the reference package's host modules
-(utils/config, utils/calibration, audio/wavio, audio/decode,
-checkpoints/torch_compat) against the originals, so a copy cannot drift
-silently; and the port's device default."""
+(utils/config, utils/calibration, utils/tb_writer, audio/wavio,
+audio/decode, audio/dsp's resample_poly_np, checkpoints/torch_compat)
+against the originals, so a copy cannot drift silently; and the port's
+device default."""
 
 import dataclasses
 
@@ -23,7 +24,8 @@ from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifi
 from synthetic_audio_detection_tpu_torch.utils import calibration as TCal
 from synthetic_audio_detection_tpu_torch.utils import config as TC
 
-CONFIGS = ["AudioConfig", "SpectrogramConfig", "InferenceConfig"]
+CONFIGS = ["AudioConfig", "SpectrogramConfig", "InferenceConfig", "SpecAugmentConfig",
+           "TrainConfig"]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -131,3 +133,95 @@ def test_pipeline_defaults_to_cuda():
     ens = build_ensemble([BinaryClassifier("resnet18").state_dict()], ["SynA", "Real"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TP.InferencePipeline(ens)
+
+
+def test_wave_augment_flags_match_reference():
+    import argparse
+
+    parsers = []
+    for mod in (TC, JC):
+        p = argparse.ArgumentParser()
+        mod.add_wave_augment_args(p)
+        parsers.append(p)
+    for argv in ([], ["--wave-augment"], ["--wave-augment", "--wave-noise-prob", "0.2",
+                                          "--wave-snr-db", "1", "9", "--wave-lowpass-hz", "3e3",
+                                          "8e3"]):
+        port, ref = (p.parse_args(argv) for p in parsers)
+        assert vars(port) == vars(ref)
+        assert dataclasses.asdict(TC.spec_augment_from_args(port)) == dataclasses.asdict(
+            JC.spec_augment_from_args(ref))
+    assert TC.SpecAugmentConfig(wave_noise_prob=0.1).wave_enabled
+    assert not TC.SpecAugmentConfig().wave_enabled
+
+
+def test_tb_writer_matches_reference(tmp_path):
+    from synthetic_audio_detection_tpu.utils import tb_writer as JTB
+    from synthetic_audio_detection_tpu_torch.utils import tb_writer as TTB
+
+    data = b"synthetic audio" * 7
+    assert TTB.crc32c(data) == JTB.crc32c(data)
+    files = []
+    for mod, name in ((TTB, "port"), (JTB, "ref")):
+        w = mod.SummaryWriter(str(tmp_path / name))
+        for step in range(3):
+            w.add_scalar("train/loss", 0.5 / (step + 1), step, wall_time=1000.0 + step)
+        w.close()
+        (f,) = list((tmp_path / name).iterdir())
+        files.append(f.read_bytes())
+    # the first record is the file-version event stamped with the wall clock
+    skip = lambda b: b[8 + 4 + int.from_bytes(b[:8], "little") + 4:]  # noqa: E731
+    assert skip(files[0]) == skip(files[1]) and len(files[0]) == len(files[1])
+
+
+@pytest.mark.parametrize("rates", [(44_100, 32_000), (16_000, 32_000), (48_000, 32_000)])
+def test_resample_poly_np_matches_reference(rates):
+    from synthetic_audio_detection_tpu.audio.dsp import resample_poly_np as jax_resample
+    from synthetic_audio_detection_tpu_torch.audio.resample import resample_poly_np
+
+    y = np.random.default_rng(3).standard_normal(12_345).astype(np.float32)
+    np.testing.assert_array_equal(resample_poly_np(y, *rates), jax_resample(y, *rates))
+
+
+def test_torch_compat_training_copies_match_reference():
+    """classifier_variables_from_torch, detect_checkpoint_flavor,
+    trainable_param_keys, torch_optimizer_state_dict, adam_moments_from_torch
+    and overlay_tree: the port's copies give the reference's outputs."""
+    import jax
+
+    torch.manual_seed(1)
+    sd = {k: v.numpy() for k, v in BinaryClassifier("resnet18").state_dict().items()}
+    for prefix in ("base.", ""):
+        got = TT.classifier_variables_from_torch(sd, base_prefix=prefix)
+        want = JT.classifier_variables_from_torch(sd, base_prefix=prefix)
+        assert jax.tree_util.tree_structure(got) == jax.tree_util.tree_structure(want)
+        for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(want)):
+            np.testing.assert_array_equal(a, b)
+    for obj in (sd, {"state_dict": sd, "epoch": 1}, {"state_dict": sd},
+                {"sub_models.0.base.conv1.weight": 1}, {"layer1.0.conv1.weight": 1}, []):
+        assert TT.detect_checkpoint_flavor(obj) == JT.detect_checkpoint_flavor(obj)
+    for prefixes in (TT._PHASE1_PREFIXES, TT._PHASE2_PREFIXES):
+        assert TT.trainable_param_keys(sd, prefixes, "base.") == JT.trainable_param_keys(
+            sd, prefixes, "base.")
+    params = JT.classifier_variables_from_torch(sd, base_prefix="base.")["params"]
+    mu = jax.tree_util.tree_map(lambda a: a * 0.5, params)
+    nu = jax.tree_util.tree_map(lambda a: a * a, params)
+    opt_port = TT.torch_optimizer_state_dict(4, mu, nu, lr=5e-4)
+    opt_ref = JT.torch_optimizer_state_dict(4, mu, nu, lr=5e-4)
+    assert opt_port["param_groups"] == opt_ref["param_groups"]
+    assert opt_port["state"].keys() == opt_ref["state"].keys()
+    for i in opt_ref["state"]:
+        for k in ("step", "exp_avg", "exp_avg_sq"):
+            np.testing.assert_array_equal(opt_port["state"][i][k], opt_ref["state"][i][k])
+    # a twin's state dict indexes its optimizer state in its own key order:
+    # here tree_map's (sorted), the order the moment trees have
+    raw = JT.torch_state_dict_from_variables(
+        {"params": jax.tree_util.tree_map(lambda a: a, params)}, base_prefix="")
+    got, want = (m.adam_moments_from_torch(opt_ref, raw) for m in (TT, JT))
+    assert got[0] == want[0] == 4
+    for a, b in zip(jax.tree_util.tree_leaves(got[1:]), jax.tree_util.tree_leaves(want[1:])):
+        np.testing.assert_array_equal(a, b)
+    assert TT.adam_moments_from_torch({}, raw) is None
+    zeros = jax.tree_util.tree_map(np.zeros_like, params)
+    for a, b in zip(jax.tree_util.tree_leaves(TT.overlay_tree(zeros, got[1])),
+                    jax.tree_util.tree_leaves(JT.overlay_tree(zeros, want[1]))):
+        np.testing.assert_array_equal(a, b)

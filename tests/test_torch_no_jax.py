@@ -54,6 +54,36 @@ def test_cli_runs_without_importing_jax(tmp_path):
     assert (tmp_path / "out.json").exists()
 
 
+def test_trainer_cli_runs_without_importing_jax(tmp_path):
+    """The submodel trainer's CLI trains one epoch on the CPU (64², a tiny
+    split tree) and loads nothing of JAX or the JAX package."""
+    from synthetic_audio_detection_tpu_torch.audio import wavio
+
+    rng = np.random.default_rng(0)
+    for split in ("train", "test"):
+        for cls in ("Real", "SynA"):
+            (tmp_path / "data" / split / cls).mkdir(parents=True)
+            wavio.write_wav(str(tmp_path / "data" / split / cls / "a.wav"),
+                            (rng.standard_normal(32_000 * 8) * 0.2).astype(np.float32), 32_000)
+    code = f"""
+        import sys
+        from synthetic_audio_detection_tpu_torch.cli import submodel_trainer
+        rc = submodel_trainer.main(["--data-dir", "data", "--Class1", "SynA", "--epochs", "1",
+                                    "--batch-size", "2", "--input-size", "64", "--device", "cpu",
+                                    "--workers", "1", "--checkpoint-dir", "ck",
+                                    "--log-dir", "runs"])
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN + (REFERENCE,)!r})
+        print("RC", rc, "LOADED", loaded)
+    """
+    try:
+        res = _run(code, tmp_path, timeout=300)
+    finally:
+        shutil.rmtree(tmp_path / "ck", ignore_errors=True)  # 250 MB of checkpoint
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "RC 0 LOADED []" in res.stdout, res.stdout + res.stderr[-2000:]
+
+
 def test_every_port_module_imports_without_jax(tmp_path):
     code = f"""
         import pkgutil, importlib, sys

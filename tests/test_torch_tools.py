@@ -1,6 +1,6 @@
-"""The port's profile script: what it can show without a GPU (its kernel-name
-classification and busy-time arithmetic) and that it refuses to run
-without one."""
+"""The port's profile scripts: what they can show without a GPU (the
+kernel-name classification and busy-time arithmetic) and that they refuse
+to run without one."""
 
 import pytest
 import torch
@@ -44,6 +44,15 @@ def test_profile_script_needs_a_gpu(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert P.main([]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_train_profile_script_needs_a_gpu(capsys):
+    from synthetic_audio_detection_tpu_torch.tools import profile_train
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert profile_train.main([]) == 1
     assert "CUDA is not available" in capsys.readouterr().err
 
 
