@@ -107,8 +107,30 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            heads per sub-model) through the CLI from its .pth and from
            save_merged_native's file: the JSON of the dense layout of the
            same weights, and one trunk pass per batch.
-10. report the train step's and the trunk runs' numbers, one JSON line of
-           kernels, the nvidia-smi line, and last
+10. ensemble the ensemble-building path at full width (ResNet-18, 512²,
+           --bf16, 16 files = 32 rows a step) on a seeded split tree (Real
+           and SynA-SynD, 8 train and 4 test files each), every run
+           through a CLI's main() with the counts zeroed before and read
+           after: cli/ensemble_trainer with K = 0 (3 epochs), with
+           --per-head-stages 1 --generic-head (3 epochs), and --resume of
+           the first to 4 epochs: K1 once per train and per eval step (the
+           eval step takes the train step's mel), no other kernel; finite
+           losses; epoch 0 moves the heads and layer4 (each head's own for
+           K = 1) and no frozen weight, epoch 1 moves layer3; the resume
+           starts at the saved epoch + 1 with its moments bit for bit.
+           cli/add_head grows the K = 0 artifact by SynD (2 epochs): K1
+           once per train and eval step; the backbone and existing heads
+           bit-identical. cli/model_merger merges phase 8's two sub-model
+           .pth files, with the default and the reference's strict=False
+           semantics. Each artifact served by the CLI on the 10-minute
+           clip: every window labelled; K1 once per batch; the conv kernel
+           19 times per batch on the shared backbones (the K = 0 and the
+           grown artifact), never on the others; the K = 1 artifact's trunk
+           once per batch. Then the bf16 joint step (3 heads, K = 0 and
+           K = 1) and the add-head step: median ms of 20, rows/s, peak
+           memory.
+11. report the train step's, the trunk runs' and the ensemble phase's
+           numbers, one JSON line of kernels, the nvidia-smi line, and last
            {"ok": true, "device": {...}}.
 """
 
@@ -1043,41 +1065,37 @@ def _changed(a, b, keys):
     return {k for k in keys if not torch.equal(a[k], b[k])}
 
 
-def drive_trainer(zero_counts, counts, k1_name, work):
-    """The submodel trainer through its CLI main() on the card: --bf16 at
-    512², batch 16 files (32 rows), 3 epochs, then --resume from the best
-    checkpoint's .pth twin to 4 epochs, then --evaluate; counts zeroed
-    before each run and read after it. The Trainer's methods are wrapped to
-    observe (per-epoch weights, losses, step counts, the resumed moments),
-    not to change what they do. → report fields."""
-    import torch
-
-    from synthetic_audio_detection_tpu_torch.checkpoints import torch_compat
-    from synthetic_audio_detection_tpu_torch.cli import submodel_trainer
-    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
-
-    data = os.path.join(work, "train_data")
-    write_train_tree(data)
+@contextlib.contextmanager
+def observing(cls):
+    """While open, the trainer class ``cls``'s train_epoch, validate and
+    resume also record what they do, without changing it, into the yielded
+    dict: the trainers seen (``trainers``), each epoch's (trainer, epoch,
+    layer3_unfrozen, weights before, weights after) (``epochs``), the
+    train and val losses (``losses``), and each resume's (path, start
+    epoch, Adam count, mu, nu) (``resumed``)."""
     seen = {"trainers": [], "epochs": [], "losses": [], "resumed": []}
+    names = ("train_epoch", "validate", "resume")
+    orig = {n: getattr(cls, n) for n in names}
+    own = {n: n in cls.__dict__ for n in names}
 
     def cpu_state(tr):
         return {k: v.detach().float().cpu().clone() for k, v in tr.model.state_dict().items()
                 if not k.endswith("num_batches_tracked")}
 
-    orig = {name: getattr(Trainer, name) for name in ("train_epoch", "validate", "resume")}
+    def note(tr):
+        if tr not in seen["trainers"]:
+            seen["trainers"].append(tr)
 
     def train_epoch(self, batcher, epoch):
-        if self not in seen["trainers"]:
-            seen["trainers"].append(self)
+        note(self)
         before = cpu_state(self)
         out = orig["train_epoch"](self, batcher, epoch)
-        seen["epochs"].append((epoch, self.layer3_unfrozen, before, cpu_state(self)))
+        seen["epochs"].append((self, epoch, self.layer3_unfrozen, before, cpu_state(self)))
         seen["losses"].append(out["loss"])
         return out
 
     def validate(self, batcher, epoch):
-        if self not in seen["trainers"]:
-            seen["trainers"].append(self)
+        note(self)
         out = orig["validate"](self, batcher, epoch)
         seen["losses"].append(out.val_loss)
         return out
@@ -1089,6 +1107,32 @@ def drive_trainer(zero_counts, counts, k1_name, work):
                                 {k: v.detach().cpu().clone() for k, v in mu.items()},
                                 {k: v.detach().cpu().clone() for k, v in nu.items()}))
 
+    for name, fn in zip(names, (train_epoch, validate, resume)):
+        setattr(cls, name, fn)
+    try:
+        yield seen
+    finally:
+        for name in names:
+            if own[name]:
+                setattr(cls, name, orig[name])
+            else:
+                delattr(cls, name)
+
+
+def drive_trainer(zero_counts, counts, k1_name, work):
+    """The submodel trainer through its CLI main() on the card: --bf16 at
+    512², batch 16 files (32 rows), 3 epochs, then --resume from the best
+    checkpoint's .pth twin to 4 epochs, then --evaluate; counts zeroed
+    before each run and read after it, the Trainer observed
+    (``observing``). → report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import torch_compat
+    from synthetic_audio_detection_tpu_torch.cli import submodel_trainer
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+
+    data = os.path.join(work, "train_data")
+    write_train_tree(data)
     common = ["--data-dir", data, "--Class0", "Real", "--Class1", "SynthA", "--batch-size", "16",
               "--input-size", "512", "--bf16", "--device", "cuda", "--workers", "8",
               "--log-dir", os.path.join(work, "runs")]
@@ -1099,38 +1143,35 @@ def drive_trainer(zero_counts, counts, k1_name, work):
             ("evaluate", ["--evaluate", "--resume", os.path.join(ck, "best_model.ckpt")])]
     cwd = os.getcwd()
     launches, steps, seconds = {}, {}, {}
-    for name, fn in (("train_epoch", train_epoch), ("validate", validate), ("resume", resume)):
-        setattr(Trainer, name, fn)
     os.chdir(work)  # the CLI writes its logs/ where it runs
     try:
-        for run, args in runs:
-            seen["trainers"].clear()
-            zero_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(io.StringIO()):
-                rc = submodel_trainer.main(common + args)
-            seconds[run] = time.perf_counter() - t0
-            check(rc == 0, f"trainer CLI ({run}) exit code {rc}")
-            launches[run] = counts()
-            tr = seen["trainers"][0]
-            steps[run] = (tr.train_steps_run, tr.eval_steps_run)
-            print(f"[train] {run}: {seconds[run]:.1f} s, {tr.train_steps_run} train and "
-                  f"{tr.eval_steps_run} eval steps, launches {launches[run]}", flush=True)
-            check(launches[run][k1_name] == steps[run][0],
-                  f"{run}: K1 launched {launches[run][k1_name]} times for {steps[run][0]} "
-                  "train steps (the eval step takes the GEMM mel)")
-            check(sum(v for k, v in launches[run].items() if k != k1_name) == 0,
-                  f"{run}: a kernel other than K1 launched")
+        with observing(Trainer) as seen:
+            for run, args in runs:
+                seen["trainers"].clear()
+                zero_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = submodel_trainer.main(common + args)
+                seconds[run] = time.perf_counter() - t0
+                check(rc == 0, f"trainer CLI ({run}) exit code {rc}")
+                launches[run] = counts()
+                tr = seen["trainers"][0]
+                steps[run] = (tr.train_steps_run, tr.eval_steps_run)
+                print(f"[train] {run}: {seconds[run]:.1f} s, {tr.train_steps_run} train and "
+                      f"{tr.eval_steps_run} eval steps, launches {launches[run]}", flush=True)
+                check(launches[run][k1_name] == steps[run][0],
+                      f"{run}: K1 launched {launches[run][k1_name]} times for {steps[run][0]} "
+                      "train steps (the eval step takes the GEMM mel)")
+                check(sum(v for k, v in launches[run].items() if k != k1_name) == 0,
+                      f"{run}: a kernel other than K1 launched")
     finally:
         os.chdir(cwd)
-        for name, fn in orig.items():
-            setattr(Trainer, name, fn)
 
     check(steps["fit"] == (9, 3), f"fit ran {steps['fit']} train and eval steps, not (9, 3)")
     check(steps["evaluate"] == (0, 1), f"evaluate ran {steps['evaluate']}")
     check(all(np.isfinite(v) for v in seen["losses"]), "a train or val loss is not finite")
     # the freeze schedule, from the per-epoch weights of the fit run
-    (e0, unf0, s0, s1), (e1, unf1, _, s2) = seen["epochs"][0], seen["epochs"][1]
+    (_, e0, unf0, s0, s1), (_, e1, unf1, _, s2) = seen["epochs"][0], seen["epochs"][1]
     check(e0 == 0 and not unf0 and e1 == 1 and unf1, "epochs 0 and 1 and the unfreeze at 1")
     params = [k for k in s0 if "running" not in k]
     running = [k for k in s0 if "running" in k]
@@ -1169,7 +1210,8 @@ def drive_trainer(zero_counts, counts, k1_name, work):
 def time_train_step(work, smi):
     """The bf16 train step at 512², 32 rows, on one batch of the tree: the
     median ms over back-to-back steps after warm-up (CUDA events), rows a
-    second, and the peak memory allocated."""
+    second, and the peak memory allocated. The trained weights are saved
+    (ck_timed/best_model.ckpt and its .pth twin) for the merger."""
     import torch
 
     from synthetic_audio_detection_tpu_torch.data import dataset as ds
@@ -1197,6 +1239,9 @@ def time_train_step(work, smi):
               f"at stage {4 if phase == 1 else 3}): {ms:.3f} ms median of 20 after 3 warm-up "
               f"(CUDA events), {out[phase]['rows_per_s']:.1f} rows/s, peak "
               f"{out[phase]['peak_gib']:.2f} GiB allocated | {smi}", flush=True)
+    # its weights after these 46 steps: the merger phase's second sub-model
+    os.makedirs(os.path.join(work, "ck_timed"))
+    tr.save_checkpoint(0, os.path.join(work, "ck_timed", "best_model.ckpt"))
     return out
 
 
@@ -1309,35 +1354,393 @@ def drive_trunk_serving(zero_counts, counts, sds, work, clip, n_windows, k1_name
                               infer=InferenceConfig(), compute_dtype=torch.bfloat16, device="cuda")
     want = json.loads(result_json(clip, dense.analyze_windows(windows, stamps)))
     batches = -(-n_windows // BATCH)
+    out = {}
+    for fmt, path in paths.items():
+        zero_counts()
+        with counting_trunk_passes() as passes:
+            res, sec = run_cli(["--merged-model", path, "--audio", clip,
+                                "--output-json", os.path.join(work, f"trunk_{fmt}.json"),
+                                "--bf16", "--input-size", "512", "--device", "cuda"])
+        launches = counts()
+        print(f"[trunk] {fmt}: {sec:.3f} s for {n_windows} windows (CLI wall), trunk passes "
+              f"{passes[0]} for {batches} batches, launches {launches}; JSON equal to the "
+              f"dense layout's: {res == want}", flush=True)
+        check(passes[0] == batches, f"{fmt}: the trunk ran {passes[0]} times, not {batches}")
+        check(launches[k1_name] == batches and sum(launches.values()) == batches,
+              f"{fmt}: launches {launches}")
+        check(res == want, f"{fmt}: the trunk-shared JSON differs from the dense layout's")
+        out[fmt] = dict(seconds=sec, trunk_passes=passes[0], launches=launches)
+    return out
+
+
+@contextlib.contextmanager
+def counting_trunk_passes():
+    """While open, every ensemble that serialization.load_merged returns
+    counts its shared trunk's forward passes into the yielded [count] (a
+    forward hook; the loader is put back on exit)."""
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+
     passes = [0]
     load = serialization.load_merged
 
     def counted(path, backbone="resnet18"):
         e = load(path, backbone)
-        e.trunk.register_forward_hook(lambda *_: passes.__setitem__(0, passes[0] + 1))
+        if e.trunk is not None:
+            e.trunk.register_forward_hook(lambda *_: passes.__setitem__(0, passes[0] + 1))
         return e
 
-    out = {}
     serialization.load_merged = counted
     try:
-        for fmt, path in paths.items():
-            passes[0] = 0
-            zero_counts()
-            res, sec = run_cli(["--merged-model", path, "--audio", clip,
-                                "--output-json", os.path.join(work, f"trunk_{fmt}.json"),
-                                "--bf16", "--input-size", "512", "--device", "cuda"])
-            launches = counts()
-            print(f"[trunk] {fmt}: {sec:.3f} s for {n_windows} windows (CLI wall), trunk passes "
-                  f"{passes[0]} for {batches} batches, launches {launches}; JSON equal to the "
-                  f"dense layout's: {res == want}", flush=True)
-            check(passes[0] == batches, f"{fmt}: the trunk ran {passes[0]} times, not {batches}")
-            check(launches[k1_name] == batches and sum(launches.values()) == batches,
-                  f"{fmt}: launches {launches}")
-            check(res == want, f"{fmt}: the trunk-shared JSON differs from the dense layout's")
-            out[fmt] = dict(seconds=sec, trunk_passes=passes[0], launches=launches)
+        yield passes
     finally:
         serialization.load_merged = load
+
+
+# ---------------------------------------------------------------------------
+# The ensemble-building path
+# ---------------------------------------------------------------------------
+
+ENSEMBLE_CLASSES = ["SynA", "SynB", "SynC"]
+NEW_CLASS = "SynD"
+ENSEMBLE_TRAIN_FILES = 8  # per class: Real + 3 classes = 32 files, two steps of 16
+ENSEMBLE_TEST_FILES = 4   # per class: one eval step of 16 files
+
+
+def write_ensemble_tree(root):
+    """train/ and test/ × Real, SynA-SynD: 8-s 32 kHz PCM_16 WAVs from a
+    seed; Real broadband noise, class c noise under three harmonics of an
+    f0 drawn from its own band (c · 150 Hz to c · 150 Hz + 100)."""
+    from synthetic_audio_detection_tpu_torch.audio import wavio
+
+    rng = np.random.default_rng(13)
+    t = np.arange(8 * SR) / SR
+    for split, n in (("train", ENSEMBLE_TRAIN_FILES), ("test", ENSEMBLE_TEST_FILES)):
+        for c, cls in enumerate(["Real"] + ENSEMBLE_CLASSES + [NEW_CLASS]):
+            os.makedirs(os.path.join(root, split, cls))
+            for i in range(n):
+                x = rng.standard_normal(t.size) * rng.uniform(0.05, 0.2)
+                if c:
+                    f0 = 150 * c + rng.uniform(0, 100)
+                    x = x + sum(0.2 / k * np.sin(2 * np.pi * k * f0 * t) for k in (1, 2, 3))
+                wavio.write_wav(os.path.join(root, split, cls, f"{cls}_{i:02d}.wav"),
+                                np.clip(x, -1, 1).astype(np.float32), SR)
+
+
+def _quiet(fn, *args):
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def drive_joint_trainer(zero_counts, counts, k1_name, work, data):
+    """cli/ensemble_trainer main() on the card at 512², --bf16, 16 files a
+    step: K = 0 for 3 epochs (layer3 unfreezes at epoch 1), K = 1 with the
+    generic head for 3 epochs, then --resume of the first run to 4 epochs;
+    counts zeroed before each run and read after. JointTrainer's methods
+    are wrapped to observe (per-epoch weights, losses, step counts, the
+    resumed moments), not to change what they do. → report fields and the
+    two runs' checkpoint paths."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+    from synthetic_audio_detection_tpu_torch.cli import ensemble_trainer
+    from synthetic_audio_detection_tpu_torch.train.joint import JointTrainer
+
+    common = ["--data-dir", data, "--synthetic-classes", *ENSEMBLE_CLASSES, "--batch-size", "16",
+              "--input-size", "512", "--bf16", "--device", "cuda", "--workers", "8",
+              "--log-dir", os.path.join(work, "runs_joint")]
+    ck = {0: os.path.join(work, "joint_k0"), 1: os.path.join(work, "joint_k1")}
+    runs = [("K0", ["--epochs", "3", "--checkpoint-dir", ck[0]]),
+            ("K1-generic", ["--epochs", "3", "--checkpoint-dir", ck[1], "--per-head-stages", "1",
+                            "--generic-head"]),
+            ("K0-resume", ["--epochs", "4", "--checkpoint-dir", os.path.join(work, "joint_k0b"),
+                           "--resume", os.path.join(ck[0], "joint_model.ckpt")])]
+    launches, steps, seconds = {}, {}, {}
+    with observing(JointTrainer) as seen:
+        for run, args in runs:
+            seen["trainers"].clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            rc = _quiet(ensemble_trainer.main, common + args)
+            seconds[run] = time.perf_counter() - t0
+            check(rc == 0, f"ensemble trainer CLI ({run}) exit code {rc}")
+            launches[run] = counts()
+            tr = seen["trainers"][0]
+            steps[run] = (tr.train_steps_run, tr.eval_steps_run)
+            print(f"[ensemble] joint {run}: {seconds[run]:.1f} s, {steps[run][0]} train and "
+                  f"{steps[run][1]} eval steps, launches {launches[run]}", flush=True)
+            check(launches[run][k1_name] == sum(steps[run]),
+                  f"{run}: K1 launched {launches[run][k1_name]} times for {steps[run]} train and "
+                  "eval steps (both take the kernel's mel)")
+            check(sum(v for k, v in launches[run].items() if k != k1_name) == 0,
+                  f"{run}: a kernel other than K1 launched")
+
+    for run in ("K0", "K1-generic"):
+        check(steps[run] == (6, 3), f"{run} ran {steps[run]} train and eval steps, not (6, 3)")
+    check(all(np.isfinite(v) for v in seen["losses"]), "a joint train or val loss is not finite")
+    # the freeze schedule, from the per-epoch weights of the two fit runs
+    for k in (0, 1):
+        (_, e0, unf0, s0, s1), (_, e1, unf1, _, s2) = [
+            e for e in seen["epochs"] if e[0].per_head_stages == k][:2]
+        check(e0 == 0 and not unf0 and e1 == 1 and unf1, f"K={k}: epochs 0, 1 and the unfreeze")
+        params = [n for n in s0 if "running" not in n]
+        moved0, moved1 = _changed(s0, s1, params), _changed(s1, s2, params)
+        trainable0 = "base.layer4." if k == 0 else "heads."
+        check(all(n.startswith(("heads.", trainable0)) for n in moved0),
+              f"K={k}: epoch 0 moved frozen weights {sorted(moved0)[:3]}")
+        for i in range(4 if k else 3):
+            own = f"heads.{i}.tail.layer4." if k else f"heads.{i}."
+            check(any(n.startswith(own) for n in moved0), f"K={k}: epoch 0 did not move {own}*")
+        if k == 0:
+            check(any(n.startswith("base.layer4.") for n in moved0), "epoch 0 left layer4")
+        check(any(n.startswith("base.layer3.") for n in moved1),
+              f"K={k}: epoch 1 (layer3 unfrozen) did not move layer3")
+        check(not any(n.startswith(("base.conv1", "base.bn1", "base.layer1", "base.layer2"))
+                      for n in moved1), f"K={k}: epoch 1 moved the stem or layer1-2")
+    # the resume: start epoch and the saved moments, bit for bit
+    path, start, count, mu, nu = seen["resumed"][0]
+    tree, meta = serialization.load_native(path)
+    adam = tree["opt_state"]["inner_state"]["1"]["0"]
+    check(start == int(meta["epoch"]) + 1, f"resume started at {start}, saved {meta['epoch']}")
+    check(count == int(np.asarray(adam["count"])), "resumed Adam count")
+    for name, saved in (("mu", adam["mu"]), ("nu", adam["nu"])):
+        want = serialization.joint_named({"params": saved})
+        got = mu if name == "mu" else nu
+        check(set(want) == set(got) and all(
+            torch.equal(got[n], torch.from_numpy(np.array(want[n]))) for n in want),
+            f"resumed {name} differs from the checkpoint's")
+    check(steps["K0-resume"] == (2 * (4 - start), 4 - start),
+          f"resume ran {steps['K0-resume']} steps from epoch {start}")
+    print(f"[ensemble] freeze checks hold for K = 0 and K = 1 (epoch 0 moves the heads and "
+          f"layer4, each head's own for K = 1, no frozen weight; epoch 1 moves layer3); resume "
+          f"at epoch {start} with {len(mu)} moment pairs bit-equal to the checkpoint (step "
+          f"{count}); losses {['%.4f' % v for v in seen['losses']]}", flush=True)
+    artifacts = {k: os.path.join(ck[k], "joint_model.ckpt") for k in (0, 1)}
+    return {"launches": launches, "steps": steps, "seconds": seconds}, artifacts
+
+
+def serve(zero_counts, counts, model, clip, out_json):
+    """The port's CLI on one artifact (bf16, 512²): → (JSON, seconds,
+    launches, trunk passes)."""
+    zero_counts()
+    with counting_trunk_passes() as passes:
+        res, sec = run_cli(["--merged-model", model, "--audio", clip, "--output-json", out_json,
+                            "--bf16", "--input-size", "512", "--device", "cuda"])
+    return res, sec, counts(), passes[0]
+
+
+def drive_ensemble_serving(zero_counts, counts, names, artifacts, work, clip, n_windows):
+    """Each grown artifact through the CLI: the JSON covers every window
+    with the artifact's labels; K1 once per batch; the conv kernel 19 times
+    per batch on a shared backbone, never on another layout; a trunk-shared
+    artifact's trunk once per batch."""
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+
+    batches = -(-n_windows // BATCH)
+    out = {}
+    for label, (path, classes) in artifacts.items():
+        ens = serialization.load_merged(path)
+        res, sec, launches, passes = serve(zero_counts, counts, path, clip,
+                                           os.path.join(work, f"serve_{label}.json"))
+        layout = ("shared" if ens.shared_backbone else
+                  f"trunk K={ens.shared_trunk_stages}" if ens.trunk is not None else "dense")
+        print(f"[ensemble] serve {label} ({layout}, {ens.num_heads} heads): {sec:.3f} s for "
+              f"{n_windows} windows (CLI wall), launches {launches}, trunk passes {passes}",
+              flush=True)
+        check(len(res["segments"]) == n_windows, f"{label}: window count")
+        check(all(s["label"] in classes for s in res["segments"]), f"{label}: labels")
+        check(all(np.isfinite(v) for v in res["percentages"].values()), f"{label}: percentages")
+        check(launches[names["k1"]] == batches, f"{label}: K1 launches {launches}")
+        conv = CONV_LAUNCHES_PER_BATCH * batches if ens.shared_backbone else 0
+        check(launches[names["conv"]] == conv, f"{label}: conv launches {launches}, not {conv}")
+        check(sum(launches.values()) == batches + conv, f"{label}: other kernels {launches}")
+        check(passes == (batches if ens.trunk is not None else 0),
+              f"{label}: {passes} trunk passes for {batches} batches")
+        out[label] = dict(layout=layout, seconds=sec, launches=launches, trunk_passes=passes)
     return out
+
+
+def drive_add_head(zero_counts, counts, k1_name, work, data, artifact):
+    """cli/add_head main() on the K = 0 artifact with a fourth class, 2
+    epochs at 512², --bf16, 16 files a step (the other classes as hard
+    negatives). K1 launched once per train and eval step; the grown
+    artifact's backbone and existing heads bit-identical to the
+    artifact's. → report fields and the grown artifact's .pth."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+    from synthetic_audio_detection_tpu_torch.cli import add_head
+    from synthetic_audio_detection_tpu_torch.train.add_head import HeadAdder
+
+    adders = []
+    fit = HeadAdder.fit
+
+    def observed_fit(self, data_dir):
+        adders.append(self)
+        return fit(self, data_dir)
+
+    out = os.path.join(work, "grown.ckpt")
+    HeadAdder.fit = observed_fit
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        rc = _quiet(add_head.main, ["--merged-model", artifact, "--data-dir", data,
+                                    "--new-class", NEW_CLASS, "--output", out, "--epochs", "2",
+                                    "--batch-size", "16", "--input-size", "512", "--bf16",
+                                    "--device", "cuda", "--workers", "8"])
+        seconds = time.perf_counter() - t0
+    finally:
+        HeadAdder.fit = fit
+    check(rc == 0, f"add-head CLI exit code {rc}")
+    launches = counts()
+    adder = adders[0]
+    steps = (adder.train_steps_run, adder.eval_steps_run)
+    print(f"[ensemble] add-head {NEW_CLASS}: {seconds:.1f} s, {steps[0]} train and {steps[1]} "
+          f"eval steps, launches {launches}", flush=True)
+    check(steps == (6, 4), f"add-head ran {steps} train and eval steps, not (6, 4)")
+    check(launches[k1_name] == sum(steps) and sum(launches.values()) == sum(steps),
+          f"add-head: launches {launches} for {steps} train and eval steps")
+    before = serialization.load_merged(artifact).classifier_state_dicts()
+    grown_pth = out.removesuffix(".ckpt") + ".pth"
+    for path in (out, grown_pth):
+        grown = serialization.load_merged(path)
+        check(grown.class_names == ENSEMBLE_CLASSES + [NEW_CLASS, "Real"] and grown.shared_backbone,
+              f"grown artifact {grown.class_names}")
+        after = grown.classifier_state_dicts()
+        check(all(torch.equal(a[k], b[k]) for a, b in zip(after, before) for k in b
+                  if not k.endswith("num_batches_tracked")),
+              f"{os.path.basename(path)}: an existing head or the backbone changed")
+    print("[ensemble] the grown artifact's backbone and 3 existing heads are bit-identical in "
+          "both formats", flush=True)
+    return {"launches": launches, "steps": steps, "seconds": seconds}, grown_pth
+
+
+def drive_merger(work):
+    """cli/model_merger main() on phase 8's two sub-model .pth files, with
+    the default and the reference's strict=False semantics (the first file
+    as the donor); both load whole (base.* keys), so the two merges hold
+    the same weights. → the two merged .pth paths."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+    from synthetic_audio_detection_tpu_torch.cli import model_merger
+
+    recipe = os.path.join(work, "recipe.csv")
+    with open(recipe, "w") as f:
+        f.write("model_filename,synthetic_class,real_class\n"
+                "ck/best_model.ckpt.pth,SynthA,Real\nck_timed/best_model.ckpt.pth,SynthB,Real\n")
+    paths = {"default": os.path.join(work, "merged.pth"),
+             "reference": os.path.join(work, "merged_ref.pth")}
+    extra = {"default": [], "reference": ["--reference-merge-semantics", "--backbone-weights",
+                                          os.path.join(work, "ck", "best_model.ckpt.pth")]}
+    for kind, path in paths.items():
+        t0 = time.perf_counter()
+        rc = _quiet(model_merger.main, ["--submodels-folder", work, "--csv-file", recipe,
+                                        "--output-path", path, "--device", "cuda"] + extra[kind])
+        check(rc == 0, f"merger CLI ({kind}) exit code {rc}")
+        print(f"[ensemble] merge ({kind}): {time.perf_counter() - t0:.1f} s", flush=True)
+    a, b = (serialization.load_merged(p).classifier_state_dicts() for p in paths.values())
+    check(all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x),
+          "the two merges of base.* sub-models differ")
+    return paths
+
+
+def time_ensemble_steps(work, data, artifact, smi):
+    """The bf16 joint train step (3 heads; K = 0 and K = 1, phase 1) and the
+    add-head step at 512², 32 rows, on one batch of the tree: median ms of
+    20 back-to-back steps after 3 warm-up (CUDA events), rows a second,
+    peak memory allocated, K1 launches a step, and from a torch.profiler
+    trace of 3 steps (tools/profile_train.trace) the kernels, device busy
+    time and idle share a step."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+    from synthetic_audio_detection_tpu_torch.data import dataset as ds
+    from synthetic_audio_detection_tpu_torch.ops import cuda_melspec
+    from synthetic_audio_detection_tpu_torch.tools import profile_train
+    from synthetic_audio_detection_tpu_torch.train.add_head import HeadAdder
+    from synthetic_audio_detection_tpu_torch.train.joint import JointTrainer
+    from synthetic_audio_detection_tpu_torch.train.trainer import device_batches
+    from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig, TrainConfig
+
+    cfg = TrainConfig(batch_size=16, compute_dtype="bfloat16", workers=8)
+    spec = SpectrogramConfig(mel_norm=None, out_size=512)
+    samples = ds.list_samples(data, "train", ["Real"] + ENSEMBLE_CLASSES)
+    batcher = ds.WaveformBatcher(samples[::2][:16], 16, shuffle=False, workers=8)
+    out = {}
+
+    def timed(name, step):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = cuda_melspec.KERNEL.launches
+        ms = median_ms(step, n=20, warmup=3)
+        k1 = (cuda_melspec.KERNEL.launches - before) / 23
+        r = profile_train.trace(step, 3)
+        out[name] = dict(ms=ms, rows_per_s=TRAIN_ROWS / ms * 1e3,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, k1_per_step=k1,
+                         kernels_per_step=r["kernels_per_step"],
+                         device_busy_ms=r["device_busy_ms_per_step"], idle_share=r["idle_share"])
+        print(f"[ensemble] bf16 {name} step, 512², {TRAIN_ROWS} rows: {ms:.3f} ms median of 20 "
+              f"after 3 warm-up (CUDA events), {out[name]['rows_per_s']:.1f} rows/s, peak "
+              f"{out[name]['peak_gib']:.2f} GiB allocated, K1 {k1:g} a step; traced (3 steps, "
+              f"torch.profiler): {r['kernels_per_step']:.0f} kernels and "
+              f"{r['device_busy_ms_per_step']:.3f} ms device busy a step, idle "
+              f"{100 * r['idle_share']:.1f}% | {smi}", flush=True)
+
+    for k in (0, 1):
+        tr = JointTrainer(cfg, ENSEMBLE_CLASSES, spec_cfg=spec,
+                          log_dir=os.path.join(work, "runs_t"), per_head_stages=k, device="cuda")
+        batch = next(tr._batches(batcher, 0, TRAIN_ROWS))
+        check(batch["audio"].dtype == torch.int16 and batch["audio"].shape[0] == TRAIN_ROWS,
+              "the joint trainer takes the int16 transport, 32 rows")
+        timed(f"joint N=3 K={k}", lambda: tr._train_step(tr.state, batch, tr.generator))
+        del tr
+    adder = HeadAdder(serialization.load_merged(artifact), NEW_CLASS, cfg, spec_cfg=spec,
+                      device="cuda")
+    batch = next(device_batches(batcher, 0, TRAIN_ROWS, "float32", adder.device))
+    batch["label"] = (batch["label"] == 1).long()  # the new head is binary
+    timed("add-head", lambda: adder._step(adder.state, adder.trunk, batch, adder.generator))
+    return out
+
+
+def drive_ensemble(zero_counts, counts, names, work, clip, n_windows, smi):
+    """Phase 10: the ensemble-building path, run from ``work`` (the CLIs
+    write their logs/ where they run). → report fields."""
+    data = os.path.join(work, "ensemble_data")
+    write_ensemble_tree(data)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        joint, ckpts = drive_joint_trainer(zero_counts, counts, names["k1"], work, data)
+        print(f"[ensemble] joint trainer runs took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        add, grown_pth = drive_add_head(zero_counts, counts, names["k1"], work, data,
+                                        ckpts[0] + ".merged.pth")
+        print(f"[ensemble] add-head took {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        merged = drive_merger(work)
+        print(f"[ensemble] merges took {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        os.chdir(cwd)
+    names3 = ENSEMBLE_CLASSES + ["Real"]
+    grown = {"joint-K0": (ckpts[0] + ".merged.pth", names3),
+             "joint-K1-generic": (ckpts[1] + ".merged.pth", names3),
+             "grown": (grown_pth, ENSEMBLE_CLASSES + [NEW_CLASS, "Real"]),
+             "merged": (merged["default"], ["SynthA", "SynthB", "Real"]),
+             "merged-reference": (merged["reference"], ["SynthA", "SynthB", "Real"])}
+    t0 = time.perf_counter()
+    served = drive_ensemble_serving(zero_counts, counts, names, grown, work, clip, n_windows)
+    check(served["joint-K0"]["layout"] == "shared", "the K = 0 artifact is not a shared backbone")
+    check(served["joint-K1-generic"]["layout"] == "trunk K=1", "the K = 1 artifact's layout")
+    print(f"[ensemble] serving took {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    steps = time_ensemble_steps(work, data, ckpts[0] + ".merged.pth", smi)
+    print(f"[ensemble] step timing took {time.perf_counter() - t0:.1f} s", flush=True)
+    k1 = (sum(v[names["k1"]] for v in joint["launches"].values()) + add["launches"][names["k1"]]
+          + sum(v["launches"][names["k1"]] for v in served.values()))
+    conv = sum(v["launches"][names["conv"]] for v in served.values())
+    return {"joint": joint, "add_head": add, "serving": served, "steps": steps,
+            "k1_launches": k1, "conv_launches": conv}
 
 
 def main() -> int:
@@ -1587,12 +1990,20 @@ def main() -> int:
         print(f"[train] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
 
         # 9. trunk-shared serving
+        t0 = time.perf_counter()
         trunk = drive_trunk_serving(zero_counts, counts, sds, work,
                                     os.path.join(work, "10min.wav"), 150, k1.name)
+        print(f"[trunk] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # 10. the ensemble-building path
+        t0 = time.perf_counter()
+        ensemble = drive_ensemble(zero_counts, counts, {"k1": k1.name, "conv": conv.name}, work,
+                                  os.path.join(work, "10min.wav"), 150, smi)
+        print(f"[ensemble] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 8. report
+    # 11. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -1601,9 +2012,11 @@ def main() -> int:
         "source": cuda_melspec.SOURCE,
         "replaces": cuda_melspec.REPLACES,
         "launches": (sum(c[k1.name] for c in cli_launches.values()) + train["k1_launches"]
-                     + sum(t["launches"][k1.name] for t in trunk.values())),
+                     + sum(t["launches"][k1.name] for t in trunk.values())
+                     + ensemble["k1_launches"]),
         "serving_launches": sum(c[k1.name] for c in cli_launches.values()),
         "train_launches": train["k1_launches"],
+        "ensemble_launches": ensemble["k1_launches"],
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -1661,7 +2074,7 @@ def main() -> int:
         "library": LIBRARY_LOG_MEL,
         "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
     }]
-    conv_launches = path_launches[conv.name]
+    conv_launches = path_launches[conv.name] + ensemble["conv_launches"]
     tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5·max(1, √(K / 576)) for sums of K products "
            "(one bf16 ulp, and the sums' order near 0), bf16 out with ReLU on and off, and "
            "float32 out")
@@ -1673,6 +2086,8 @@ def main() -> int:
         "entry": "cuda_conv.conv3x3_bn_relu",
         "kernel": f"{cuda_conv.LIBRARY}: wgmma fed by a TMA ring",
         "launches": conv_launches,
+        "conv_path_launches": path_launches[conv.name],
+        "ensemble_launches": ensemble["conv_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "tol": tol,
         "per": f"the {CONV_LAUNCHES_PER_BATCH} conv-kernel launches of one 128-window batch "
@@ -1741,7 +2156,11 @@ def main() -> int:
                                      "what": f"bf16, ResNet-18, 512², {TRAIN_ROWS} rows, phase 1",
                                      "f32_vs_cpu": train["f32_vs_cpu"],
                                      "cli_seconds": train["seconds"]},
-                      "trunk_serving": trunk}))
+                      "trunk_serving": trunk,
+                      "ensemble": {"steps": ensemble["steps"],
+                                   "what": f"bf16, ResNet-18, 512², {TRAIN_ROWS} rows, phase 1",
+                                   "joint_cli": ensemble["joint"], "add_head_cli": ensemble[
+                                       "add_head"], "serving": ensemble["serving"]}}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-"""Synthetic Audio Detection — PyTorch/CUDA port of the serving path and the
-submodel trainer.
+"""Synthetic Audio Detection — PyTorch/CUDA port of the serving path, the
+submodel trainer and the ensemble-building path.
 
 A second package beside ``synthetic_audio_detection_tpu`` (the JAX
 reference, which stays as it is). On one NVIDIA GPU it serves a merged
@@ -21,6 +21,19 @@ and trains one binary sub-model:
         (the log-mel kernel in dB-only mode under bf16, SpecAugment and
         crop, the flax-BatchNorm ResNet on cuDNN, optax's AdamW)
       → checkpoints/serialization.py (native msgpack and the .pth twin)
+
+and builds ensembles:
+
+    cli/ensemble_trainer.py → train/joint.py:JointTrainer (N heads on one
+      backbone pass, the same step machinery; the eval step on the train
+      step's mel) → a resume file and the merged ensemble in both formats
+    cli/add_head.py → train/add_head.py:HeadAdder (one new head on a
+      merged artifact's frozen trunk, spliced in)
+    cli/model_merger.py → ensemble/merger.py (sub-model checkpoints and a
+      CSV recipe → a merged ensemble)
+
+Every fresh model a trainer builds draws flax's default init
+(models/init.py), as the reference's ``model.init`` does.
 
 The port imports ``torch``, ``numpy`` and ``scipy``, never ``jax`` and
 nothing of the reference package: it keeps its own copies of the host

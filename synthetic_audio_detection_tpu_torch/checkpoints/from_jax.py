@@ -3,8 +3,9 @@
 Input is the JAX package's variable tree as numpy (``{'params', 'batch_stats'}``
 as ``jax.tree_util.tree_map(np.asarray, variables)`` gives it); output is the
 port's state dict in the reference key space (``base.*``,
-``head.<index>.*``) or a whole ensemble. The layout transposes are the
-reference package's ``torch_compat`` map, copied into this package.
+``head.<index>.*``), a whole ensemble, or a joint trainer's state. The
+layout transposes are the reference package's ``torch_compat`` map, copied
+into this package.
 """
 
 from __future__ import annotations
@@ -50,3 +51,15 @@ def ensemble_from_variables(
     return build_ensemble(sds, class_names, backbone,
                           detect_shared_backbone=detect_shared_backbone,
                           generic_head=generic_head, calibration=calibration)
+
+
+def joint_state_from_jax(state, variables: Dict[str, Any], adam: Any, step: int) -> None:
+    """A JAX ``JointTrainState``'s variables (``{'params', 'batch_stats'}``
+    of ``{'base', 'heads'}``, numpy) and its Adam ``(count, mu, nu)`` (as
+    the JAX package's ``steps.extract_adam_state`` gives them, numpy) → the
+    port's joint ``TrainState`` (``train/joint.py:init_joint_state``), in
+    place, with the step counter."""
+    from synthetic_audio_detection_tpu_torch.train.joint import load_joint_state_
+
+    count, mu, nu = adam
+    load_joint_state_(state, variables, int(count), mu, nu, step)

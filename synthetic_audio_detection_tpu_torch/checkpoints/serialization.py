@@ -17,6 +17,12 @@
   trainer's ``{epoch, state_dict, best_acc, optimizer, scheduler,
   total_steps}`` (``load_submodel_torch`` / ``save_submodel_torch``).
 
+The joint trainer's resume file is native (``format: 'sad-tpu-joint-v1'``):
+its variables and Adam moments are trees ``{'base': <the shared trunk>,
+'heads': <every head's leaves stacked on a leading axis>}``, and with
+per-head stages ``'heads'`` is ``{'tail': ..., 'mlp': ...}``
+(``joint_tree`` / ``joint_named`` map them to the joint model's names).
+
 Torch files load with ``torch.load(..., weights_only=True)``: the files
 the reference package's own writer produces hold only tensors, dicts,
 lists, tuples and scalars, which that loader accepts as they are.
@@ -25,6 +31,7 @@ lists, tuples and scalars, which that loader accepts as they are.
 from __future__ import annotations
 
 import os
+import re
 import zipfile
 from typing import Any, Dict, Optional, Tuple
 
@@ -93,6 +100,65 @@ def adam_from_optax_state(opt_state: Dict[str, Any]) -> Tuple[int, Dict[str, np.
     """(count, mu, nu) by parameter name from ``optax_adamw_state``'s tree."""
     adam = opt_state["inner_state"]["1"]["0"]
     return int(np.asarray(adam["count"])), moments_by_name(adam["mu"]), moments_by_name(adam["nu"])
+
+
+def _collections(variables: Dict[str, Any], scope: str) -> Dict[str, Any]:
+    return {c: variables[c].get(scope, {}) for c in ("params", "batch_stats")}
+
+
+def joint_tree(named: Dict[str, Any]) -> Dict[str, Any]:
+    """The joint model's state (or moments) by name, as numpy — ``base.*``
+    (the trunk), ``heads.<i>.<index>.*`` (head i's MLP) or, with per-head
+    stages, ``heads.<i>.tail.*`` and ``heads.<i>.mlp.<index>.*`` — → the
+    reference's trees ``{'params': {'base', 'heads'}, 'batch_stats':
+    {'base', 'heads'}}`` (a collection with no entries is empty)."""
+    to_vars = torch_compat.classifier_variables_from_torch
+    out = _collections(to_vars({k: v for k, v in named.items() if k.startswith("base.")},
+                               base_prefix="base."), "base")
+    out = {c: {"base": t} for c, t in out.items()}
+    per_head: Dict[int, Dict[str, Any]] = {}
+    for k, v in named.items():
+        m = re.match(r"heads\.(\d+)\.(.+)", k)
+        if m:
+            per_head.setdefault(int(m.group(1)), {})[m.group(2)] = v
+    heads = []
+    for i in sorted(per_head):
+        sd = per_head[i]
+        if any(k.startswith("tail.") for k in sd):
+            tail = _collections(to_vars({"base." + k[5:]: v for k, v in sd.items()
+                                         if k.startswith("tail.")}, base_prefix="base."), "base")
+            mlp = _collections(to_vars({"head." + k[4:]: v for k, v in sd.items()
+                                        if k.startswith("mlp.")}), "head")
+            heads.append({c: {"tail": tail[c], "mlp": mlp[c]} for c in tail})
+        else:
+            heads.append(_collections(to_vars({"head." + k: v for k, v in sd.items()}), "head"))
+    for c in out:
+        out[c]["heads"] = _stack([h[c] for h in heads])
+    return out
+
+
+def joint_named(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``joint_tree``'s inverse: reference trees (either collection may be
+    absent, as in a moment tree) → the joint model's names, as numpy."""
+    p, s = variables.get("params", {}), variables.get("batch_stats", {})
+    named = torch_compat.torch_state_dict_from_variables(
+        {"params": {"base": p.get("base", {})}, "batch_stats": {"base": s.get("base", {})}})
+    hp, hs = p.get("heads", {}), s.get("heads", {})
+    leaves = torch_compat._flatten(hp)
+    n = len(next(iter(leaves.values()))) if leaves else 0
+    for i in range(n):
+        hpi, hsi = _unstack(hp, i), _unstack(hs, i)
+        if "tail" in hpi:
+            tail = torch_compat.torch_state_dict_from_variables(
+                {"params": {"base": hpi["tail"]}, "batch_stats": {"base": hsi.get("tail", {})}})
+            named.update({f"heads.{i}.tail.{k[5:]}": v for k, v in tail.items()})
+            mlp_p, mlp_s, prefix = hpi["mlp"], hsi.get("mlp", {}), f"heads.{i}.mlp."
+        else:
+            mlp_p, mlp_s, prefix = hpi, hsi, f"heads.{i}."
+        mlp = torch_compat.torch_state_dict_from_variables(
+            {"params": {"head": mlp_p}, "batch_stats": {"head": mlp_s}})
+        named.update({prefix + k[5:]: v for k, v in mlp.items()})
+    return named
 
 
 # ---------------------------------------------------------------------------

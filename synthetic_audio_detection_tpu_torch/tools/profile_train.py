@@ -2,7 +2,7 @@
 
     python -m synthetic_audio_detection_tpu_torch.tools.profile_train --out profile.json
 
-Builds the bf16 ``Trainer`` at 512² (ResNet-18, PyTorch's default init from
+Builds the bf16 ``Trainer`` at 512² (ResNet-18, flax's default init from
 ``--seed``) and one batch of ``--rows`` seeded int16 noise windows on the
 card, the trainer's own input (the log-mel kernel front end, int16
 transport). Per phase (1: the gradient stops at stage 4; 2: at stage 3,

@@ -156,6 +156,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
+def accuracy(logits: torch.Tensor, labels: torch.Tensor,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The share of the rows weighted 1 whose argmax is their label."""
+    correct = (torch.argmax(logits, -1) == labels).float()
+    if weights is None:
+        return correct.mean()
+    w = weights.float()
+    return (correct * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
     """optax's rule over all the tensors, in place: unchanged when ‖g‖ <
     max, else (g / ‖g‖)·max, with ‖g‖ the norm of them all."""
@@ -259,6 +269,62 @@ def _precision(compute_dtype: torch.dtype, device: torch.device):
 # Steps
 # ---------------------------------------------------------------------------
 
+def gradients(loss: torch.Tensor, params: List[torch.Tensor],
+              compute_dtype: torch.dtype) -> Tuple[Optional[torch.Tensor], ...]:
+    """d loss / d params (None where a parameter is not in the graph), with
+    TF32 off for a float32 backward on the card."""
+    exact = compute_dtype == torch.float32 and params[0].device.type == "cuda"
+    with exact_float32() if exact else contextlib.nullcontext():
+        return torch.autograd.grad(loss, params, allow_unused=True)
+
+
+@torch.no_grad()
+def apply_update_(state: TrainState, grads, loss: torch.Tensor, cfg: TrainConfig,
+                  buffers: List[torch.Tensor], saved: List[torch.Tensor],
+                  mask: Optional[List[float]] = None) -> torch.Tensor:
+    """The optimizer half of a step, in place: the gradients masked to the
+    trainable parameters (``mask``, default ``state.mask``; a parameter that
+    is trainable but not in the graph takes a zero gradient, so AdamW still
+    decays it, as optax does), one global-norm clip over them all, AdamW at
+    the plateau's lr, the frozen moments decayed, and the NaN-skip: where
+    ``loss`` is not finite, parameters, moments, count and the BN
+    ``buffers`` (put back from ``saved``) keep their values. The step
+    counter always advances. → ``ok``, the device flag."""
+    mask = state.mask if mask is None else mask
+    params = state.params
+    # a frozen parameter's masked gradient is zero: it keeps its value
+    # and its moments only decay, so only the live ones are updated
+    live = [i for i, m in enumerate(mask) if m]
+    frozen = [i for i, m in enumerate(mask) if not m]
+    ok = torch.isfinite(loss)
+    g = [grads[i].float() if grads[i] is not None
+         else torch.zeros_like(params[i], dtype=torch.float32) for i in live]
+    for t in g:  # a skipped step's update is zero (a NaN cannot be scaled away)
+        t.masked_fill_(~ok, 0.0)
+    clip_by_global_norm_(g, cfg.grad_clip_norm)
+    lr = state.lr_scale * cfg.lr  # float32, no host-to-device copy
+    state.count = adamw_update_(g, [params[i] for i in live], [state.mu[i] for i in live],
+                                [state.nu[i] for i in live], state.count, lr,
+                                cfg.weight_decay, ok)
+    if frozen:
+        torch._foreach_mul_([state.mu[i] for i in frozen], torch.where(ok, B1, 1.0))
+        torch._foreach_mul_([state.nu[i] for i in frozen], torch.where(ok, B2, 1.0))
+    for b, old in zip(buffers, saved):  # BN statistics moved in the forward
+        torch.where(ok, b, old, out=b)
+    state.lr = torch.where(ok, lr, state.lr)
+    state.step = state.step + 1
+    return ok
+
+
+def save_buffers(model: torch.nn.Module) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """(the BN running statistics, a copy of them) before a forward that
+    moves them, for ``apply_update_``'s NaN-skip."""
+    buffers = bn_buffers(model)
+    saved = [torch.empty_like(b) for b in buffers]
+    torch._foreach_copy_(saved, buffers)
+    return buffers, saved
+
+
 def make_train_step(
     cfg: TrainConfig,
     spec_cfg: SpectrogramConfig,
@@ -293,9 +359,7 @@ def make_train_step(
                                         sample_rate, dft_mode=dft_mode)
         labels = batch["label"]
         weights = batch.get("weight")
-        buffers = bn_buffers(model)
-        saved = [torch.empty_like(b) for b in buffers]
-        torch._foreach_copy_(saved, buffers)
+        buffers, saved = save_buffers(model)
         params = state.params
         with _precision(compute_dtype, device), record_function("train_step.forward"):
             if reference_quirk_loss:
@@ -303,43 +367,16 @@ def make_train_step(
             else:
                 out = model(x)
             loss = cross_entropy(out, labels, weights)
-        exact = compute_dtype == torch.float32 and device.type == "cuda"
-        with exact_float32() if exact else contextlib.nullcontext():
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        with record_function("train_step.optimizer"), torch.no_grad():
-            mask = state.mask
-            if reference_quirk_loss:
-                # only the backbone is in the graph: the head gets no update
-                quirk = freeze_mask(state.names, ("base",))
-                mask = [m * quirk[n] for m, n in zip(mask, state.names)]
-            # a frozen parameter's masked gradient is zero: it keeps its value
-            # and its moments only decay, so only the live ones are updated
-            live = [i for i, m in enumerate(mask) if m]
-            frozen = [i for i, m in enumerate(mask) if not m]
-            ok = torch.isfinite(loss)
-            g = [grads[i].float() if grads[i] is not None
-                 else torch.zeros_like(params[i], dtype=torch.float32) for i in live]
-            for t in g:  # a skipped step's update is zero (a NaN cannot be scaled away)
-                t.masked_fill_(~ok, 0.0)
-            clip_by_global_norm_(g, cfg.grad_clip_norm)
-            lr = state.lr_scale * cfg.lr  # float32, no host-to-device copy
-            state.count = adamw_update_(g, [params[i] for i in live],
-                                        [state.mu[i] for i in live],
-                                        [state.nu[i] for i in live],
-                                        state.count, lr, cfg.weight_decay, ok)
-            torch._foreach_mul_([state.mu[i] for i in frozen], torch.where(ok, B1, 1.0))
-            torch._foreach_mul_([state.nu[i] for i in frozen], torch.where(ok, B2, 1.0))
-            for b, old in zip(buffers, saved):  # BN statistics moved in the forward
-                torch.where(ok, b, old, out=b)
-            state.lr = torch.where(ok, lr, state.lr)
-            state.step = state.step + 1
-        correct = (torch.argmax(out, -1) == labels).float()
-        if weights is not None:
-            w = weights.float()
-            acc = (correct * w).sum() / torch.clamp(w.sum(), min=1.0)
-        else:
-            acc = correct.mean()
-        return {"loss": loss.detach(), "accuracy": acc, "skipped": (~ok).float()}
+        grads = gradients(loss, params, compute_dtype)
+        mask = state.mask
+        if reference_quirk_loss:
+            # only the backbone is in the graph: the head gets no update
+            quirk = freeze_mask(state.names, ("base",))
+            mask = [m * quirk[n] for m, n in zip(mask, state.names)]
+        with record_function("train_step.optimizer"):
+            ok = apply_update_(state, grads, loss, cfg, buffers, saved, mask)
+        return {"loss": loss.detach(), "accuracy": accuracy(out, labels, weights),
+                "skipped": (~ok).float()}
 
     return train_step
 

@@ -1,7 +1,8 @@
 """Host-side training of one binary head (the reference package's
 ``train/trainer.py``), on a GPU.
 
-Seeded init, the frozen-backbone start, layer3 unfrozen at epochs // 3,
+Seeded init (flax's defaults, ``models/init.py``, as the reference's
+``model.init``), the frozen-backbone start, layer3 unfrozen at epochs // 3,
 per epoch a train pass (ReduceLROnPlateau stepped on its loss) and a
 validation pass with the classification report, best-validation-accuracy
 checkpoints in both formats (the native msgpack file and its ``.pth``
@@ -33,6 +34,7 @@ from synthetic_audio_detection_tpu_torch.audio import wavio
 from synthetic_audio_detection_tpu_torch.checkpoints import serialization, torch_compat
 from synthetic_audio_detection_tpu_torch.data import dataset as ds
 from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+from synthetic_audio_detection_tpu_torch.models.init import flax_default_init_
 from synthetic_audio_detection_tpu_torch.train import steps
 from synthetic_audio_detection_tpu_torch.train.plateau import PlateauState
 from synthetic_audio_detection_tpu_torch.utils import metrics as metrics_mod
@@ -88,7 +90,76 @@ def resolve_device(device: str) -> torch.device:
     return dev
 
 
-class Trainer:
+def device_batches(batcher, epoch: int, target_rows: int, transport: str,
+                   device: torch.device) -> Iterator[Dict[str, torch.Tensor]]:
+    """One epoch of ``batcher`` on ``device``: each batch padded to
+    ``target_rows`` with zero audio weighted 0 (a grain batch comes padded,
+    with its weights), its audio as int16 PCM under the int16 transport,
+    through pinned memory on the card."""
+    pin = device.type == "cuda"
+    for batch in batcher.epoch(epoch):
+        if "weight" in batch:  # grain backend: fixed-shape batches with weights
+            padded = batch
+        else:
+            padded, n = ds.pad_batch(batch, target_rows)
+            padded["weight"] = (np.arange(target_rows) < n).astype(np.float32)
+        audio = padded["audio"]
+        if transport == "int16" and audio.dtype != np.int16:
+            audio = wavio.pcm16_quantize(audio)
+        out = {"audio": torch.from_numpy(np.ascontiguousarray(audio)),
+               "label": torch.from_numpy(np.asarray(padded["label"], np.int64)),
+               "weight": torch.from_numpy(np.asarray(padded["weight"], np.float32))}
+        if pin:
+            out = {k: v.pin_memory() for k, v in out.items()}
+        yield {k: v.to(device, non_blocking=pin) for k, v in out.items()}
+
+
+class StepTrainer:
+    """What the trainers share: the batch feed, the plateau's lr scale on
+    the device, and the train pass. A subclass sets ``cfg``, ``device``,
+    ``state``, ``generator``, ``writer``, ``plateau``, ``_transport``,
+    ``_train_step`` and ``train_steps_run``."""
+
+    def _batches(self, batcher, epoch: int, target_rows: int) -> Iterator[Dict[str, torch.Tensor]]:
+        return device_batches(batcher, epoch, target_rows, self._transport, self.device)
+
+    def _set_plateau(self, plateau: PlateauState) -> None:
+        self.plateau = plateau
+        self.state.lr_scale = torch.tensor(plateau.scale, dtype=torch.float32,
+                                           device=self.device)
+
+    def _log_step(self, metrics: Dict[str, torch.Tensor], step: int) -> None:
+        """Scalars of a logged step beyond its loss and accuracy (none)."""
+
+    def train_epoch(self, batcher, epoch: int) -> Dict[str, float]:
+        """One pass over the training batches; → the epoch's mean loss and
+        accuracy over the steps that were not skipped (accumulated on the
+        device, read once at the end)."""
+        target_rows = 2 * batcher.batch_size
+        loss_sum = torch.zeros((), device=self.device)
+        acc_sum = torch.zeros((), device=self.device)
+        n_good = torch.zeros((), device=self.device)
+        t0 = time.time()
+        for i, batch in enumerate(self._batches(batcher, epoch, target_rows)):
+            m = self._train_step(self.state, batch, self.generator)
+            self.train_steps_run += 1
+            good = torch.isfinite(m["loss"]).float()
+            loss_sum = loss_sum + torch.where(good > 0, m["loss"], torch.zeros_like(m["loss"]))
+            acc_sum = acc_sum + good * m["accuracy"]
+            n_good = n_good + good
+            if (i + 1) % self.cfg.log_every_steps == 0:
+                loss, acc = float(m["loss"]), float(m["accuracy"])
+                step = int(self.state.step)
+                self.writer.add_scalar("train/loss", loss, step)
+                self.writer.add_scalar("train/accuracy", acc, step)
+                self._log_step(m, step)
+                log.info("epoch %d step %d loss %.4f acc %.4f (%.1f rows/s)", epoch, step, loss,
+                         acc, (i + 1) * target_rows / (time.time() - t0))
+        denom = max(float(n_good), 1.0)
+        return {"loss": float(loss_sum) / denom, "accuracy": float(acc_sum) / denom}
+
+
+class Trainer(StepTrainer):
     def __init__(
         self,
         cfg: TrainConfig,
@@ -113,9 +184,9 @@ class Trainer:
         self.model_name = model_name
         self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         on_card = self.device.type == "cuda"
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(cfg.seed)
+        with torch.random.fork_rng(devices=[]):  # the constructor's own draws
             model = BinaryClassifier(model_name, num_outputs=len(self.class_names))
+        flax_default_init_(model, torch.Generator().manual_seed(cfg.seed))
         model = model.to(self.device)
         if on_card:
             model = model.to(memory_format=torch.channels_last)
@@ -210,11 +281,6 @@ class Trainer:
             raise ValueError(f"checkpoint does not fit the model: missing {missing[:5]}, "
                              f"unexpected {unexpected[:5]}")
 
-    def _set_plateau(self, plateau: PlateauState) -> None:
-        self.plateau = plateau
-        self.state.lr_scale = torch.tensor(plateau.scale, dtype=torch.float32,
-                                           device=self.device)
-
     def resume(self, path: str) -> None:
         """Restore weights, moments, scheduler and step counter from a
         ``.pth``/``.pt`` (either package's twin, or a reference trainer
@@ -262,51 +328,8 @@ class Trainer:
 
     # -- epochs ---------------------------------------------------------------
 
-    def _batches(self, batcher, epoch: int, target_rows: int) -> Iterator[Dict[str, torch.Tensor]]:
-        pin = self.device.type == "cuda"
-        for batch in batcher.epoch(epoch):
-            if "weight" in batch:  # grain backend: fixed-shape batches with weights
-                padded = batch
-            else:
-                padded, n = ds.pad_batch(batch, target_rows)
-                padded["weight"] = (np.arange(target_rows) < n).astype(np.float32)
-            audio = padded["audio"]
-            if self._transport == "int16" and audio.dtype != np.int16:
-                audio = wavio.pcm16_quantize(audio)
-            out = {"audio": torch.from_numpy(np.ascontiguousarray(audio)),
-                   "label": torch.from_numpy(np.asarray(padded["label"], np.int64)),
-                   "weight": torch.from_numpy(np.asarray(padded["weight"], np.float32))}
-            if pin:
-                out = {k: v.pin_memory() for k, v in out.items()}
-            yield {k: v.to(self.device, non_blocking=pin) for k, v in out.items()}
-
-    def train_epoch(self, batcher, epoch: int) -> Dict[str, float]:
-        """One pass over the training batches; → the epoch's mean loss and
-        accuracy over the steps that were not skipped (accumulated on the
-        device, read once at the end)."""
-        target_rows = 2 * batcher.batch_size
-        loss_sum = torch.zeros((), device=self.device)
-        acc_sum = torch.zeros((), device=self.device)
-        n_good = torch.zeros((), device=self.device)
-        t0 = time.time()
-        for i, batch in enumerate(self._batches(batcher, epoch, target_rows)):
-            m = self._train_step(self.state, batch, self.generator)
-            self.train_steps_run += 1
-            good = torch.isfinite(m["loss"]).float()
-            loss_sum = loss_sum + torch.where(good > 0, m["loss"], torch.zeros_like(m["loss"]))
-            acc_sum = acc_sum + good * m["accuracy"]
-            n_good = n_good + good
-            if (i + 1) % self.cfg.log_every_steps == 0:
-                loss, acc = float(m["loss"]), float(m["accuracy"])
-                step = int(self.state.step)
-                lr = self.cfg.lr * float(self.state.lr_scale)
-                self.writer.add_scalar("train/loss", loss, step)
-                self.writer.add_scalar("train/accuracy", acc, step)
-                self.writer.add_scalar("train/lr", lr, step)
-                log.info("epoch %d step %d loss %.4f acc %.4f (%.1f rows/s)", epoch, step, loss,
-                         acc, (i + 1) * target_rows / (time.time() - t0))
-        denom = max(float(n_good), 1.0)
-        return {"loss": float(loss_sum) / denom, "accuracy": float(acc_sum) / denom}
+    def _log_step(self, metrics: Dict[str, torch.Tensor], step: int) -> None:
+        self.writer.add_scalar("train/lr", self.cfg.lr * float(self.state.lr_scale), step)
 
     def validate(self, batcher, epoch: int) -> EpochResult:
         target_rows = 2 * batcher.batch_size

@@ -708,3 +708,62 @@ def test_trunk_shared_ensemble_on_the_card_matches_the_cpu():
         got = gpu(x.cuda()).cpu()
     assert len(passes) == 1
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_head_stages", [0, 1])
+def test_bf16_joint_trainer_steps_launch_the_kernel(tmp_path, per_head_stages):
+    """The joint trainer under --bf16 on the card: int16 transport, K1 once
+    per train step and once per eval step (the eval step takes the train
+    step's mel, on dequantized float32 audio), finite loss, every head's
+    moments move."""
+    _cuda_or_skip()
+    from synthetic_audio_detection_tpu_torch.train.joint import JointTrainer
+    from synthetic_audio_detection_tpu_torch.utils.config import TrainConfig
+
+    tr = JointTrainer(TrainConfig(batch_size=2, compute_dtype="bfloat16"), ["SynA", "SynB"],
+                      spec_cfg=SpectrogramConfig(mel_norm=None, out_size=128),
+                      log_dir=str(tmp_path / "runs"), per_head_stages=per_head_stages,
+                      generic_head=True, device="cuda")
+    assert tr._dft == "pallas" and tr._transport == "int16"
+    batch = _train_batch(4, 128_000, "cuda")
+    batch["audio"] = torch.round(batch["audio"] * 32768).to(torch.int16)
+    before = cuda_melspec.KERNEL.launches
+    m = tr._train_step(tr.state, batch, tr.generator)
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 1
+    stats = tr._eval_step(tr.model, batch)
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 2
+    assert bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0
+    mu, _ = tr.state.moments()
+    assert all(float(mu[n].abs().max()) > 0 for n in mu if n.startswith("heads.")
+               and n.endswith("10.weight"))
+    assert float(stats["count"]) == 3.0 and stats["confusion"].shape == (3, 2, 2)
+
+
+@pytest.mark.cuda
+def test_bf16_head_adder_steps_launch_the_kernel():
+    """HeadAdder under --bf16 on the card: K1 once per train step and once
+    per eval step; the frozen trunk is unchanged."""
+    _cuda_or_skip()
+    from synthetic_audio_detection_tpu_torch.train.add_head import HeadAdder
+    from synthetic_audio_detection_tpu_torch.utils.config import TrainConfig
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        sd = BinaryClassifier().state_dict()
+    ens = build_ensemble([sd, sd], ["SynA", "SynB", "Real"])
+    adder = HeadAdder(ens, "SynC", TrainConfig(batch_size=2, compute_dtype="bfloat16"),
+                      spec_cfg=SpectrogramConfig(mel_norm=None, out_size=128), device="cuda")
+    trunk = {k: v.clone() for k, v in adder.trunk.state_dict().items()}
+    batch = _train_batch(4, 128_000, "cuda")
+    before = cuda_melspec.KERNEL.launches
+    m = adder._step(adder.state, adder.trunk, batch, adder.generator)
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 1
+    out = adder._eval(adder.state.model, adder.trunk, batch)
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 2
+    assert bool(torch.isfinite(m["loss"])) and float(out["count"]) == 3.0
+    assert all(torch.equal(v, trunk[k]) for k, v in adder.trunk.state_dict().items())

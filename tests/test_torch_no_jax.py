@@ -84,6 +84,33 @@ def test_trainer_cli_runs_without_importing_jax(tmp_path):
     assert "RC 0 LOADED []" in res.stdout, res.stdout + res.stderr[-2000:]
 
 
+def test_ensemble_building_clis_run_without_importing_jax(tmp_path):
+    """The ensemble trainer, add-head and merger CLIs answer --help, and
+    their library modules import, in an interpreter whose path holds only
+    the repository, loading nothing of JAX or the JAX package."""
+    code = f"""
+        import contextlib, io, sys
+        from synthetic_audio_detection_tpu_torch.cli import add_head, ensemble_trainer, model_merger
+        import synthetic_audio_detection_tpu_torch.ensemble.merger
+        import synthetic_audio_detection_tpu_torch.train.add_head
+        import synthetic_audio_detection_tpu_torch.train.joint
+        codes = []
+        for cli in (ensemble_trainer, add_head, model_merger):
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    cli.main(["--help"])
+            except SystemExit as e:
+                codes.append((e.code, "--device" in out.getvalue()))
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN + (REFERENCE,)!r})
+        print("CODES", codes, "LOADED", loaded)
+    """
+    res = _run(code, tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "CODES [(0, True), (0, True), (0, True)] LOADED []" in res.stdout, res.stdout
+
+
 def test_every_port_module_imports_without_jax(tmp_path):
     code = f"""
         import pkgutil, importlib, sys
