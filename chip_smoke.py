@@ -129,9 +129,39 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            once per batch. Then the bf16 joint step (3 heads, K = 0 and
            K = 1) and the add-head step: median ms of 20, rows/s, peak
            memory.
-11. report the train step's, the trunk runs' and the ensemble phase's
-           numbers, one JSON line of kernels, the nvidia-smi line, and last
-           {"ok": true, "device": {...}}.
+11. daemon  infer/server.serve() on 127.0.0.1:0 in a thread, over phase 6's
+           shared checkpoint as cli/serve builds it (bf16, 512², batch 128,
+           micro-batching on, warmed up), beside a second server without
+           micro-batching on the same pipeline; counts zeroed after the
+           warm-up and read at the end, the rows of every device dispatch
+           recorded. Checks: /healthz; /analyze of the 20-s clip has the
+           CLI's labels on every clear window; per_head=1 adds the per-head
+           key; 16 concurrent /analyze (8 client threads, 20-s clips of 5
+           windows) take fewer dispatches than requests, with each clip's
+           lone labels (but where a lone sigmoid lies within 0.01 of a
+           decision boundary) and logits within TOL_ROUTE of the lone ones;
+           a /stream session at source_rate=44100 fed 1-s int16 chunks
+           finalizes to /analyze's labels on the same samples, percentages
+           within 1e-3; ops/resample.resample_bucketed on the card within
+           1e-5 of resample_poly_np; K1 once and the conv kernel 19 times
+           per bucket batch dispatched, nothing else. Prints windows/s and
+           requests/s of the 16-request burst with and without
+           micro-batching in turns, the p50 latency of a lone /analyze, one
+           dispatch's ms at 5, 10, 35 and 128 windows, and the median ms of
+           a 1-s stream feed.
+12. legacy  a seeded 5-class ResNet-152 .pth (flax's default init) through
+           cli/legacy_inference main() on the 20-s clip in float32 and with
+           --bf16: the JSON covers the 5 classes with time-ordered segments;
+           bf16 and float32 argmax agree where the float32 top probability
+           leads by more than 0.05; the card's float32 probabilities within
+           1e-4 of the CPU's on a 5-s clip; then cli/legacy_trainer main()
+           for one epoch at 512², --batch-size 8, on a seeded tree of the
+           five legacy class folders: finite losses, epoch_0_acc_*.ckpt.
+           No kernel launches anywhere in the phase (float32 cuDNN and the
+           GEMM mel, as the reference runs no Pallas kernel here).
+13. report the train step's, the trunk runs', the ensemble, daemon and
+           legacy phases' numbers, one JSON line of kernels, the nvidia-smi
+           line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1407,15 +1437,22 @@ ENSEMBLE_TEST_FILES = 4   # per class: one eval step of 16 files
 
 
 def write_ensemble_tree(root):
-    """train/ and test/ × Real, SynA-SynD: 8-s 32 kHz PCM_16 WAVs from a
-    seed; Real broadband noise, class c noise under three harmonics of an
-    f0 drawn from its own band (c · 150 Hz to c · 150 Hz + 100)."""
+    """train/ and test/ × Real, SynA-SynD (write_class_tree)."""
+    write_class_tree(root, ["Real"] + ENSEMBLE_CLASSES + [NEW_CLASS],
+                     (ENSEMBLE_TRAIN_FILES, ENSEMBLE_TEST_FILES), seed=13)
+
+
+def write_class_tree(root, classes, files, seed):
+    """train/ and test/ × ``classes``, ``files`` = (train, test) files a
+    class: 8-s 32 kHz PCM_16 WAVs from a seed; the first class broadband
+    noise, class c noise under three harmonics of an f0 drawn from its own
+    band (c · 150 Hz to c · 150 Hz + 100)."""
     from synthetic_audio_detection_tpu_torch.audio import wavio
 
-    rng = np.random.default_rng(13)
+    rng = np.random.default_rng(seed)
     t = np.arange(8 * SR) / SR
-    for split, n in (("train", ENSEMBLE_TRAIN_FILES), ("test", ENSEMBLE_TEST_FILES)):
-        for c, cls in enumerate(["Real"] + ENSEMBLE_CLASSES + [NEW_CLASS]):
+    for split, n in zip(("train", "test"), files):
+        for c, cls in enumerate(classes):
             os.makedirs(os.path.join(root, split, cls))
             for i in range(n):
                 x = rng.standard_normal(t.size) * rng.uniform(0.05, 0.2)
@@ -1743,6 +1780,388 @@ def drive_ensemble(zero_counts, counts, names, work, clip, n_windows, smi):
             "k1_launches": k1, "conv_launches": conv}
 
 
+# ---------------------------------------------------------------------------
+# The serving daemon
+# ---------------------------------------------------------------------------
+
+DAEMON_CLIENTS = 8    # client threads of a burst
+DAEMON_REQUESTS = 16  # 20-s clips (5 windows each) in a burst
+DAEMON_LONE_POSTS = 10
+TOL_STREAM_PCT = 1e-3  # stream finalize against /analyze, percentage points
+TOL_RESAMPLE = 1e-5    # the device resample against resample_poly_np
+# a coalesced window's label must equal its lone label unless a lone
+# sigmoid lies within this of a decision boundary (a bf16 rounding of the
+# stem at another batch size can move a logit by up to TOL_ROUTE)
+TIE_MARGIN = 0.01
+
+
+def clear_windows(probs, margin=0.05):
+    """[n, N+1] sigmoids → which labels are clear: no sigmoid within
+    ``margin`` of the threshold and, for a synthetic verdict, the argmax
+    head ahead of the runner-up by more than ``margin`` (the label is that
+    argmax)."""
+    syn = np.sort(probs[:, :-1], axis=1)
+    is_real = (probs[:, -1] >= THRESHOLD) & (syn[:, -1] < THRESHOLD)
+    return (np.all(np.abs(probs - THRESHOLD) > margin, axis=1)
+            & (is_real | (syn[:, -1] - syn[:, -2] > margin)))
+
+
+def sigmoid(logits):
+    return 1.0 / (1.0 + np.exp(-logits))
+
+
+def http(url, data=None, timeout=120):
+    """GET (no data) or POST ``url`` → the JSON answer."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def labels_of(result):
+    return [s["label"] for s in result["segments"]]
+
+
+def burst(url, clips):
+    """Every clip posted to /analyze by DAEMON_CLIENTS client threads at
+    once → (results in clip order, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DAEMON_CLIENTS) as pool:
+        out = list(pool.map(lambda c: http(f"{url}/analyze", c), clips))
+    return out, time.perf_counter() - t0
+
+
+def drive_daemon(zero_counts, counts, names, shared_path, work, cli_res, p32, smi):
+    """Phase 11: infer/server.serve() on 127.0.0.1:0 over the shared
+    checkpoint (bf16, 512², batch 128, micro-batching on), warmed up, with
+    a second server without micro-batching on the same pipeline for the
+    comparison; counts zeroed after the warm-up and read at the end, every
+    device dispatch's rows recorded. → report fields."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.audio import wavio
+    from synthetic_audio_detection_tpu_torch.audio.resample import resample_poly_np
+    from synthetic_audio_detection_tpu_torch.checkpoints.serialization import load_merged
+    from synthetic_audio_detection_tpu_torch.infer import server
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import (
+        InferencePipeline,
+        preprocess_waveform,
+        slice_waveform,
+    )
+    from synthetic_audio_detection_tpu_torch.ops import resample as device_resample
+    from synthetic_audio_detection_tpu_torch.utils.config import (
+        AudioConfig,
+        InferenceConfig,
+        SpectrogramConfig,
+    )
+
+    # the pipeline cli/serve builds for --merged-model ... --bf16
+    audio = AudioConfig(overlap=0.0)
+    pipe = InferencePipeline(load_merged(shared_path), audio=audio,
+                             spec=SpectrogramConfig.inference(out_size=512),
+                             infer=InferenceConfig(batch_size=BATCH),
+                             compute_dtype=torch.bfloat16, device="cuda")
+    check(pipe.use_kernel and pipe.use_fast_backbone, "the daemon's pipeline takes K1 and the "
+          "conv kernel")
+    rows = []  # the rows of every device dispatch
+
+    def recorded(fn):
+        def call(windows):
+            rows.append(windows.shape[0])
+            return fn(windows)
+        return call
+
+    pipe.logits_for_windows = recorded(pipe.logits_for_windows)
+    pipe.logits_and_per_head = recorded(pipe.logits_and_per_head)
+    t0 = time.perf_counter()
+    srvs = {"micro-batch": server.serve(pipe, port=0),
+            "alone": server.serve(pipe, port=0, warmup=False, micro_batch=False)}
+    warm_s = time.perf_counter() - t0
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in srvs.values()]
+    for t in threads:
+        t.start()
+    url = {k: f"http://127.0.0.1:{s.server_address[1]}" for k, s in srvs.items()}
+    state = srvs["micro-batch"].serving_state
+    rows.clear()
+    zero_counts()
+    out = {"warmup_s": warm_s}
+    try:
+        u = url["micro-batch"]
+        check(http(f"{u}/healthz") == {"status": "ok", "classes": NAMES}, "/healthz")
+
+        # the 20-s clip: the CLI's labels on every clear window
+        clip20 = os.path.join(work, "20s.wav")
+        data20 = open(clip20, "rb").read()
+        res = http(f"{u}/analyze?filename=20s.wav", data20)
+        windows, _ = slice_waveform(preprocess_waveform(clip20, audio), audio)
+        clear = clear_windows(sigmoid(p32.logits_for_windows(windows)))
+        flips = [i for i, (a, b) in enumerate(zip(labels_of(res), labels_of(cli_res)))
+                 if clear[i] and a != b]
+        same = {k: res[k] == cli_res[k] for k in ("segments", "percentages")}
+        print(f"[daemon] /analyze 20-s clip: {len(res['segments'])} windows, labels equal to the "
+              f"CLI's on {int(clear.sum()) - len(flips)}/{int(clear.sum())} clear windows; "
+              f"equal to the CLI's JSON: {same}", flush=True)
+        check(len(res["segments"]) == 5 and not flips, f"/analyze labels differ from the CLI's "
+              f"on clear windows {flips}")
+        ph = http(f"{u}/analyze?per_head=1", data20)
+        check(np.asarray(ph["per_head"]).shape == (5, len(NAMES) - 1, 2)
+              and labels_of(ph) == labels_of(res), "per_head=1")
+
+        # DAEMON_REQUESTS clips: alone, then at once
+        clips = []
+        for i in range(DAEMON_REQUESTS):
+            path = os.path.join(work, f"daemon_{i}.wav")
+            wavio.write_wav(path, make_clip(20, seed=200 + i), SR)
+            clips.append(open(path, "rb").read())
+        lone = [http(f"{u}/analyze", c) for c in clips]
+        per_clip = [slice_waveform(preprocess_waveform(os.path.join(work, f"daemon_{i}.wav"),
+                                                       audio), audio)[0]
+                    for i in range(DAEMON_REQUESTS)]
+        lone_logits = [state.locked_logits(w) for w in per_clip]
+        before = state.batcher.dispatch_count
+        together, _ = burst(u, clips)
+        dispatches = state.batcher.dispatch_count - before
+        # the same windows through the batcher from the client threads, for
+        # their logits (the JSON carries none)
+        before_direct = state.batcher.dispatch_count
+        with ThreadPoolExecutor(DAEMON_CLIENTS) as pool:
+            coalesced_logits = list(pool.map(state.batcher.logits, per_clip))
+        direct_dispatches = state.batcher.dispatch_count - before_direct
+        dlogit = max(float(np.abs(a - b).max()) for a, b in zip(lone_logits, coalesced_logits))
+        near = [~clear_windows(sigmoid(lg), TIE_MARGIN) for lg in lone_logits]
+        bad = [(i, j) for i, (a, b) in enumerate(zip(lone, together))
+               for j, (x, y) in enumerate(zip(labels_of(a), labels_of(b)))
+               if x != y and not near[i][j]]
+        n_near = int(sum(n.sum() for n in near))
+        print(f"[daemon] {DAEMON_REQUESTS} concurrent /analyze ({DAEMON_CLIENTS} clients, 5 "
+              f"windows each): {dispatches} dispatches (the same windows straight into the "
+              f"batcher: {direct_dispatches}); labels equal to each clip's lone result on "
+              f"{5 * DAEMON_REQUESTS - len(bad)}/{5 * DAEMON_REQUESTS} windows ({n_near} within "
+              f"{TIE_MARGIN} of a boundary exempt); max |Δlogit| coalesced vs lone {dlogit:.4g} "
+              f"(tol {TOL_ROUTE})", flush=True)
+        check(dispatches < DAEMON_REQUESTS,
+              f"{dispatches} dispatches for {DAEMON_REQUESTS} requests")
+        check(not bad, f"coalesced labels differ from lone ones at (clip, window) {bad}")
+        check(dlogit <= TOL_ROUTE, f"coalesced logits {dlogit} from lone ones")
+
+        # throughput of a burst with and without micro-batching, in turns
+        rates = {"micro-batch": [], "alone": []}
+        for mode in ("micro-batch", "alone", "alone", "micro-batch"):
+            _, wall = burst(url[mode], clips)
+            rates[mode].append((5 * DAEMON_REQUESTS / wall, DAEMON_REQUESTS / wall))
+        for mode, vals in rates.items():
+            print(f"[daemon] burst of {DAEMON_REQUESTS} × 20-s clips, {DAEMON_CLIENTS} clients, "
+                  f"{mode:11s}: {' / '.join(f'{w:.1f}' for w, _ in vals)} windows/s, "
+                  f"{' / '.join(f'{r:.2f}' for _, r in vals)} requests/s | {smi}", flush=True)
+        out["burst"] = {m: [{"windows_per_s": w, "requests_per_s": r} for w, r in v]
+                        for m, v in rates.items()}
+
+        lat = []
+        for _ in range(DAEMON_LONE_POSTS):
+            t0 = time.perf_counter()
+            http(f"{u}/analyze", data20)
+            lat.append(time.perf_counter() - t0)
+        out["p50_latency_ms"] = float(np.median(lat)) * 1e3
+        print(f"[daemon] lone /analyze of the 20-s clip: p50 {out['p50_latency_ms']:.2f} ms "
+              f"(min {min(lat) * 1e3:.2f}, max {max(lat) * 1e3:.2f}) of {DAEMON_LONE_POSTS} | "
+              f"{smi}", flush=True)
+
+        # one dispatch by its window count, host clock around work that ends
+        # with the logits on the host: a count above 8 pads to the batch size
+        pool_windows = np.concatenate(per_clip + per_clip)
+        out["dispatch_ms"] = {}
+        for n in (5, 10, 35, BATCH):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                state.locked_logits(pool_windows[:n])
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["dispatch_ms"][n] = float(np.median(times))
+        print(f"[daemon] one dispatch, host clock, median of 5: " + ", ".join(
+            f"{n} windows {ms:.2f} ms (bucket {pipe._bucket(n)})"
+            for n, ms in out["dispatch_ms"].items()) + f" | {smi}", flush=True)
+
+        # a live stream at 44.1 kHz against /analyze of the same samples
+        x44 = resample_poly_np(make_clip(20, seed=20), SR, 44_100)
+        pcm = wavio.pcm16_quantize(x44)
+        path44 = os.path.join(work, "20s_44k.wav")
+        wavio.write_wav(path44, pcm, 44_100)
+        want = http(f"{u}/analyze", open(path44, "rb").read())
+        sid = http(f"{u}/stream/start?source_rate=44100", b"")["stream_id"]
+        feed_ms, live = [], []
+        for i in range(0, len(pcm), 44_100):
+            t0 = time.perf_counter()
+            live += http(f"{u}/stream/{sid}/feed", pcm[i : i + 44_100].tobytes())["windows"]
+            feed_ms.append((time.perf_counter() - t0) * 1e3)
+        got = http(f"{u}/stream/{sid}/finalize", b"")
+        dpct = max(abs(got["percentages"][k] - v) for k, v in want["percentages"].items())
+        out["feed_ms"] = {"median": float(np.median(feed_ms)), "max": max(feed_ms),
+                          "feeds": len(feed_ms)}
+        print(f"[daemon] /stream at 44.1 kHz, {len(feed_ms)} 1-s int16 chunks: feed median "
+              f"{out['feed_ms']['median']:.2f} ms, max {max(feed_ms):.2f} ms (the feeds that "
+              f"complete a window dispatch it); finalize vs /analyze: labels equal "
+              f"{labels_of(got) == labels_of(want)}, the {len(live)} live verdicts (the last "
+              f"window completes at the resampler's flush) equal "
+              f"{[v['label'] for v in live] == labels_of(want)[:len(live)]}, max |Δ%| {dpct:.3g} "
+              f"(tol {TOL_STREAM_PCT}) | {smi}", flush=True)
+        check(labels_of(got) == labels_of(want) and len(got["segments"]) == 5,
+              "stream finalize labels")
+        check(dpct <= TOL_STREAM_PCT, f"stream percentages {dpct} from /analyze's")
+
+        # the device resampler (off every serving path) on the card
+        t0 = time.perf_counter()
+        y = device_resample.resample_bucketed(x44, 44_100, SR)
+        err = float(np.abs(y - resample_poly_np(x44, 44_100, SR)).max())
+        print(f"[daemon] ops/resample.resample_bucketed on the card, 20 s at 44.1 kHz: max |Δ| "
+              f"{err:.3g} against resample_poly_np (tol {TOL_RESAMPLE}), "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall", flush=True)
+        check(y.shape == (20 * SR,) and err <= TOL_RESAMPLE, "resample_bucketed")
+    finally:
+        for s in srvs.values():
+            s.shutdown()
+            s.server_close()
+            s.serving_state.close()
+        for t in threads:
+            t.join(timeout=10)
+    launches = counts()
+    batches = sum(-(-n // pipe._bucket(n)) for n in rows)
+    print(f"[daemon] {len(rows)} device dispatches, {batches} bucket batches "
+          f"(rows {sorted(set(rows))}); launches {launches}", flush=True)
+    check(launches[names["k1"]] == batches, f"K1 launched {launches[names['k1']]} times for "
+          f"{batches} bucket batches")
+    check(launches[names["conv"]] == CONV_LAUNCHES_PER_BATCH * batches,
+          f"the conv kernel launched {launches[names['conv']]} times for {batches} batches")
+    check(sum(launches.values()) == launches[names["k1"]] + launches[names["conv"]],
+          "a kernel other than K1 and the conv kernel launched")
+    out.update(dispatches=len(rows), bucket_batches=batches, k1_launches=launches[names["k1"]],
+               conv_launches=launches[names["conv"]], max_dlogit_coalesced=dlogit,
+               stream_max_dpct=dpct, resample_max_err=err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The legacy path
+# ---------------------------------------------------------------------------
+
+LEGACY_CLASSES = ["Real", "class1", "class2", "class3", "class4"]
+LEGACY_TOL_CPU = 1e-4  # CUDA float32 probabilities against the CPU's
+
+
+def drive_legacy(zero_counts, counts, work, smi):
+    """Phase 12: a seeded 5-class ResNet-152 .pth (flax's default init)
+    through cli/legacy_inference main() on the 20-s clip in float32 and
+    with --bf16, then cli/legacy_trainer main() for one epoch at 512² on a
+    seeded tree of the five legacy class folders; counts zeroed before
+    each run and read after. → report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints.serialization import save_submodel_torch
+    from synthetic_audio_detection_tpu_torch.cli import legacy_inference, legacy_trainer
+    from synthetic_audio_detection_tpu_torch.infer.legacy_analyzer import (
+        DEFAULT_CLASSES,
+        LegacyAudioAnalyzer,
+    )
+    from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+    from synthetic_audio_detection_tpu_torch.models.init import flax_default_init_
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+
+    model = BinaryClassifier("resnet152", num_outputs=5)
+    flax_default_init_(model, torch.Generator().manual_seed(0))
+    ckpt = os.path.join(work, "legacy.pth")
+    save_submodel_torch(ckpt, {k: v.numpy() for k, v in model.state_dict().items()
+                               if not k.endswith("num_batches_tracked")})
+    clip20 = os.path.join(work, "20s.wav")
+    out = {"inference": {}}
+    for mode in ("float32", "bf16"):
+        zero_counts()
+        t0 = time.perf_counter()
+        argv = ["--checkpoint_path", ckpt, "--audio_path", clip20, "--output_dir",
+                os.path.join(work, f"legacy_{mode}"), "--model-name", "resnet152",
+                "--device", "cuda"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = legacy_inference.main(argv + (["--bf16"] if mode == "bf16" else []))
+        sec = time.perf_counter() - t0
+        launches = counts()
+        check(rc == 0, f"legacy inference ({mode}) exit code {rc}")
+        res = json.load(open(os.path.join(work, f"legacy_{mode}", "20s.json")))
+        starts = [s["start"] for s in res["segments"]]
+        check(res["filename"] == "20s.wav" and list(res["percentages"]) == DEFAULT_CLASSES
+              and all(np.isfinite(v) for v in res["percentages"].values()),
+              f"legacy {mode} JSON: {res['percentages']}")
+        check(starts == sorted(starts) and all(s["end"] > s["start"] and s["class"] in
+                                               DEFAULT_CLASSES for s in res["segments"]),
+              f"legacy {mode} segments")
+        check(sum(launches.values()) == 0, f"a kernel launched on the legacy path: {launches}")
+        print(f"[legacy] cli/legacy_inference {mode:7s} ResNet-152, 20-s clip: {sec:.3f} s per "
+              f"clip (CLI wall, checkpoint load included), {len(res['segments'])} segments, "
+              f"percentages {res['percentages']}, launches {launches} | {smi}", flush=True)
+        out["inference"][mode] = {"seconds": sec, "segments": len(res["segments"])}
+
+    # per window: bf16 against float32 on the card, the card against the CPU
+    model = legacy_inference.load_classifier(ckpt, "resnet152")
+    an = {dt: LegacyAudioAnalyzer(model, compute_dtype=dt, device="cuda")
+          for dt in (torch.float32, torch.bfloat16)}
+    windows, _ = an[torch.float32].windows(an[torch.float32].preprocess(clip20))
+    p32, p16 = (an[dt].probabilities(windows) for dt in (torch.float32, torch.bfloat16))
+    top = np.sort(p32, axis=1)
+    clear = top[:, -1] - top[:, -2] > 0.05
+    agree = p32.argmax(1) == p16.argmax(1)
+    print(f"[legacy] bf16 vs float32 argmax: {int((agree & clear).sum())}/{int(clear.sum())} "
+          f"windows whose float32 top probability leads by > 0.05 agree ({int(agree.sum())}/"
+          f"{len(agree)} overall); max |Δp| {float(np.abs(p32 - p16).max()):.3g}", flush=True)
+    check(bool(agree[clear].all()), "bf16 and float32 argmax differ on clear windows")
+    cpu = LegacyAudioAnalyzer(legacy_inference.load_classifier(ckpt, "resnet152"), device="cpu")
+    w5, _ = cpu.windows(cpu.preprocess(clip20)[: 5 * SR])
+    check(w5.shape[0] == 2, "the 5-s clip's windows")
+    d_cpu = float(np.abs(cpu.probabilities(w5) - an[torch.float32].probabilities(w5)).max())
+    print(f"[legacy] float32 probabilities, CUDA vs CPU, 2 windows: max diff {d_cpu:.3g} "
+          f"(tol {LEGACY_TOL_CPU})", flush=True)
+    check(d_cpu <= LEGACY_TOL_CPU, "CUDA float32 legacy probabilities disagree with the CPU")
+    out["cuda_vs_cpu"] = d_cpu
+    del model, an, cpu
+
+    # the legacy trainer: one epoch, float32, the GEMM mel
+    data = os.path.join(work, "legacy_data")
+    write_class_tree(data, LEGACY_CLASSES, (4, 2), seed=17)
+    ck = os.path.join(work, "legacy_ck")
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI writes its logs/ and runs/ where it runs
+    try:
+        with observing(Trainer) as seen:
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = legacy_trainer.main(["--data-dir", data, "--epochs", "1", "--batch-size", "8",
+                                          "--model-name", "resnet152", "--input-size", "512",
+                                          "--device", "cuda", "--workers", "8",
+                                          "--checkpoint-dir", ck])
+            sec = time.perf_counter() - t0
+            launches = counts()
+    finally:
+        os.chdir(cwd)
+    tr = seen["trainers"][0]
+    saved = sorted(os.listdir(ck))
+    epoch = [f for f in saved if re.fullmatch(r"epoch_0_acc_\d\.\d\d\.ckpt", f)]
+    print(f"[legacy] cli/legacy_trainer ResNet-152 at 512², --batch-size 8, 1 epoch: {sec:.1f} s "
+          f"({tr.train_steps_run} train and {tr.eval_steps_run} eval steps), losses "
+          f"{['%.4f' % v for v in seen['losses']]}, saved {saved}, launches {launches} | {smi}",
+          flush=True)
+    check(rc == 0, f"legacy trainer exit code {rc}")
+    check(all(np.isfinite(v) for v in seen["losses"]), "a legacy train or val loss is not finite")
+    check(len(epoch) == 1 and epoch[0] + ".pth" in saved, f"no epoch_0_acc_*.ckpt in {saved}")
+    check(sum(launches.values()) == 0, f"a kernel launched in the legacy trainer: {launches}")
+    shutil.rmtree(ck, ignore_errors=True)
+    out["trainer"] = {"seconds": sec, "train_steps": tr.train_steps_run,
+                      "eval_steps": tr.eval_steps_run}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1879,14 +2298,8 @@ def main() -> int:
         spec512 = SpectrogramConfig.inference(out_size=512)
         p32 = InferencePipeline(ckpts["shared"], audio=audio, spec=spec512,
                                 infer=InferenceConfig(), device="cuda")
-        probs = 1.0 / (1.0 + np.exp(-p32.logits_for_windows(windows)))
-        # a label is clear when no sigmoid lies within 0.05 of the threshold
-        # and, for a synthetic verdict, the argmax head leads the runner-up
-        # by more than 0.05 (the label is that argmax)
-        syn = np.sort(probs[:, :-1], axis=1)
-        is_real = (probs[:, -1] >= THRESHOLD) & (syn[:, -1] < THRESHOLD)
-        clear = (np.all(np.abs(probs - THRESHOLD) > 0.05, axis=1)
-                 & (is_real | (syn[:, -1] - syn[:, -2] > 0.05)))
+        probs = sigmoid(p32.logits_for_windows(windows))
+        clear = clear_windows(probs)
         lab16 = [s["label"] for s in results[("shared", "10min", "bf16")]["segments"]]
         lab32 = [s["label"] for s in res32["segments"]]
         flips = [i for i in range(len(lab32)) if clear[i] and lab16[i] != lab32[i]]
@@ -2000,10 +2413,21 @@ def main() -> int:
         ensemble = drive_ensemble(zero_counts, counts, {"k1": k1.name, "conv": conv.name}, work,
                                   os.path.join(work, "10min.wav"), 150, smi)
         print(f"[ensemble] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+        # 11. the serving daemon
+        t0 = time.perf_counter()
+        daemon = drive_daemon(zero_counts, counts, {"k1": k1.name, "conv": conv.name},
+                              paths["shared"], work, results[("shared", "20s", "bf16")], p32, smi)
+        print(f"[daemon] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+        # 12. the legacy path
+        t0 = time.perf_counter()
+        legacy = drive_legacy(zero_counts, counts, work, smi)
+        print(f"[legacy] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 11. report
+    # 13. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -2013,10 +2437,11 @@ def main() -> int:
         "replaces": cuda_melspec.REPLACES,
         "launches": (sum(c[k1.name] for c in cli_launches.values()) + train["k1_launches"]
                      + sum(t["launches"][k1.name] for t in trunk.values())
-                     + ensemble["k1_launches"]),
+                     + ensemble["k1_launches"] + daemon["k1_launches"]),
         "serving_launches": sum(c[k1.name] for c in cli_launches.values()),
         "train_launches": train["k1_launches"],
         "ensemble_launches": ensemble["k1_launches"],
+        "daemon_launches": daemon["k1_launches"],
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -2074,7 +2499,7 @@ def main() -> int:
         "library": LIBRARY_LOG_MEL,
         "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
     }]
-    conv_launches = path_launches[conv.name] + ensemble["conv_launches"]
+    conv_launches = path_launches[conv.name] + ensemble["conv_launches"] + daemon["conv_launches"]
     tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5·max(1, √(K / 576)) for sums of K products "
            "(one bf16 ulp, and the sums' order near 0), bf16 out with ReLU on and off, and "
            "float32 out")
@@ -2088,6 +2513,7 @@ def main() -> int:
         "launches": conv_launches,
         "conv_path_launches": path_launches[conv.name],
         "ensemble_launches": ensemble["conv_launches"],
+        "daemon_launches": daemon["conv_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "tol": tol,
         "per": f"the {CONV_LAUNCHES_PER_BATCH} conv-kernel launches of one 128-window batch "
@@ -2160,7 +2586,8 @@ def main() -> int:
                       "ensemble": {"steps": ensemble["steps"],
                                    "what": f"bf16, ResNet-18, 512², {TRAIN_ROWS} rows, phase 1",
                                    "joint_cli": ensemble["joint"], "add_head_cli": ensemble[
-                                       "add_head"], "serving": ensemble["serving"]}}))
+                                       "add_head"], "serving": ensemble["serving"]},
+                      "daemon": daemon, "legacy": legacy}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

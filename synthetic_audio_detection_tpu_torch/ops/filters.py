@@ -1,5 +1,6 @@
 """Temporal smoothing of per-window probabilities (the reference package's
-``ops/filters.py``): ``scipy.ndimage.gaussian_filter1d`` semantics."""
+``ops/filters.py``): ``scipy.ndimage.gaussian_filter1d`` semantics, and the
+legacy analyzer's ``scipy.signal.medfilt``."""
 
 from __future__ import annotations
 
@@ -39,3 +40,15 @@ def gaussian_filter1d(x: torch.Tensor, sigma: float, axis: int = 0,
     idx = torch.as_tensor(_reflect_index(n, radius), device=x.device)
     y = F.conv1d(flat[..., idx], k[None, None, :])
     return torch.movedim(y.reshape(shape), -1, axis)
+
+
+def median_filter1d(x: torch.Tensor, kernel_size: int = 5, axis: int = -1) -> torch.Tensor:
+    """Median over ``kernel_size`` neighbours along ``axis`` with
+    ``scipy.signal.medfilt``'s semantics: zero padding at the edges, an odd
+    kernel."""
+    if kernel_size % 2 != 1:
+        raise ValueError("kernel_size must be odd")
+    r = kernel_size // 2
+    x = torch.movedim(x, axis, -1)
+    windows = F.pad(x, (r, r)).unfold(-1, kernel_size, 1)  # [..., n, k]
+    return torch.movedim(windows.median(dim=-1).values, -1, axis)

@@ -767,3 +767,91 @@ def test_bf16_head_adder_steps_launch_the_kernel():
     assert cuda_melspec.KERNEL.launches == before + 2
     assert bool(torch.isfinite(m["loss"])) and float(out["count"]) == 3.0
     assert all(torch.equal(v, trunk[k]) for k, v in adder.trunk.state_dict().items())
+
+
+# ---------------------------------------------------------------------------
+# The serving daemon
+# ---------------------------------------------------------------------------
+
+def _daemon_state(batch_size):
+    """A warm ServingState on a bf16 shared-backbone ensemble (3 heads,
+    64², the last layers scaled up so that verdicts are not ties)."""
+    from synthetic_audio_detection_tpu_torch.infer.server import ServingState
+
+    sds = []
+    for seed in range(3):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            sds.append(BinaryClassifier().state_dict())
+    sds = [{**{k: v for k, v in sds[0].items() if k.startswith("base.")},
+            **{k: (v * 30.0 if k == "head.10.weight" else v) for k, v in sd.items()
+               if k.startswith("head.")}} for sd in sds]
+    pipe = InferencePipeline(build_ensemble(sds, ["SynA", "SynB", "SynC", "Real"]),
+                             spec=SpectrogramConfig.inference(out_size=64),
+                             infer=InferenceConfig(batch_size=batch_size),
+                             compute_dtype=torch.bfloat16, device="cuda")
+    assert pipe.use_kernel and pipe.use_fast_backbone
+    state = ServingState(pipe)
+    state.warmup()
+    return state
+
+
+@pytest.mark.cuda
+def test_daemon_dispatch_launches_the_kernels_once_per_bucket_batch():
+    """A bf16 dispatch from the micro-batcher's thread: K1 once and the
+    conv kernel 19 times per bucket batch (11 windows in the 8 bucket: 2
+    batches; 3 windows: 1)."""
+    _cuda_or_skip()
+    state = _daemon_state(batch_size=8)
+    try:
+        for n, batches in ((11, 2), (3, 1)):
+            k1, conv = cuda_melspec.KERNEL.launches, cuda_conv.KERNEL.launches
+            logits = state.batcher.logits(_waves(n, 128_000, seed=n).cpu().numpy())
+            assert logits.shape == (n, 4) and np.isfinite(logits).all()
+            assert cuda_melspec.KERNEL.launches - k1 == batches
+            assert cuda_conv.KERNEL.launches - conv == 19 * batches
+    finally:
+        state.close()
+
+
+@pytest.mark.cuda
+def test_daemon_coalesced_verdicts_equal_lone_ones():
+    """Six two-window requests queued behind the device lock coalesce into
+    the 16 bucket; alone each runs in the 8 bucket. cuDNN may choose
+    another algorithm for the float32 stem at another batch size, so a
+    bf16 rounding can flip: logits within 0.3 (chip_smoke's TOL_ROUTE) and
+    the verdicts equal on every window whose lone sigmoids all lie more
+    than 0.05 from the threshold."""
+    _cuda_or_skip()
+    import threading
+    import time
+
+    state = _daemon_state(batch_size=16)
+    try:
+        reqs = [_waves(2, 128_000, seed=20 + i).cpu().numpy() for i in range(6)]
+        lone = [state.batcher.logits(w) for w in reqs]
+        before = state.batcher.dispatch_count
+        together = [None] * len(reqs)
+
+        def run(i):
+            together[i] = state.batcher.logits(reqs[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(reqs))]
+        with state.lock:
+            for t in threads:
+                t.start()
+            time.sleep(1.0)
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert state.batcher.dispatch_count - before < len(reqs)
+        pipe = state.pipeline
+        for a, b, w in zip(lone, together, reqs):
+            assert float(np.abs(a - b).max()) <= 0.3
+            stamps = [(0.0, 4.0), (4.0, 8.0)]
+            la = [s["label"] for s in pipe.analyze_windows(w, stamps, logits=a)["segments"]]
+            lb = [s["label"] for s in pipe.analyze_windows(w, stamps, logits=b)["segments"]]
+            clear = np.all(np.abs(1 / (1 + np.exp(-a)) - 0.5) > 0.05, axis=1)
+            assert [x for x, c in zip(la, clear) if c] == [x for x, c in zip(lb, clear) if c]
+    finally:
+        state.close()

@@ -225,3 +225,23 @@ def test_torch_compat_training_copies_match_reference():
     for a, b in zip(jax.tree_util.tree_leaves(TT.overlay_tree(zeros, got[1])),
                     jax.tree_util.tree_leaves(JT.overlay_tree(zeros, want[1]))):
         np.testing.assert_array_equal(a, b)
+
+
+def test_batching_copy_matches_reference():
+    """The port's infer/batching.py: the original's public names, the same
+    constructor defaults and public members (its behaviour:
+    tests/test_torch_batching.py)."""
+    import inspect
+
+    from synthetic_audio_detection_tpu.infer import batching as JB
+    from synthetic_audio_detection_tpu_torch.infer import batching as TB
+
+    def public(mod):
+        return sorted(n for n, v in vars(mod).items()
+                      if not n.startswith("_") and getattr(v, "__module__", None) == mod.__name__)
+
+    assert public(TB) == public(JB) == ["MicroBatcher"]
+    assert inspect.signature(TB.MicroBatcher) == inspect.signature(JB.MicroBatcher)
+    members = [sorted(n for n in vars(cls) if not n.startswith("_"))
+               for cls in (TB.MicroBatcher, JB.MicroBatcher)]
+    assert members[0] == members[1] == ["dispatch_count", "logits", "stop"]

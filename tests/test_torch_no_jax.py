@@ -111,6 +111,35 @@ def test_ensemble_building_clis_run_without_importing_jax(tmp_path):
     assert "CODES [(0, True), (0, True), (0, True)] LOADED []" in res.stdout, res.stdout
 
 
+def test_serving_and_legacy_clis_run_without_importing_jax(tmp_path):
+    """The serving daemon's and the legacy path's CLIs answer --help, with
+    --device among their flags, and their library modules import, in an
+    interpreter whose path holds only the repository, loading nothing of
+    JAX or the JAX package."""
+    code = f"""
+        import contextlib, io, sys
+        from synthetic_audio_detection_tpu_torch.cli import legacy_inference, legacy_trainer, serve
+        import synthetic_audio_detection_tpu_torch.infer.legacy_analyzer
+        import synthetic_audio_detection_tpu_torch.infer.server
+        import synthetic_audio_detection_tpu_torch.infer.streaming
+        import synthetic_audio_detection_tpu_torch.ops.resample
+        codes = []
+        for cli in (serve, legacy_inference, legacy_trainer):
+            out = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(out):
+                    cli.main(["--help"])
+            except SystemExit as e:
+                codes.append((e.code, "--device" in out.getvalue()))
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN + (REFERENCE,)!r})
+        print("CODES", codes, "LOADED", loaded)
+    """
+    res = _run(code, tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "CODES [(0, True), (0, True), (0, True)] LOADED []" in res.stdout, res.stdout
+
+
 def test_every_port_module_imports_without_jax(tmp_path):
     code = f"""
         import pkgutil, importlib, sys
