@@ -159,9 +159,41 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            five legacy class folders: finite losses, epoch_0_acc_*.ckpt.
            No kernel launches anywhere in the phase (float32 cuDNN and the
            GEMM mel, as the reference runs no Pallas kernel here).
-13. report the train step's, the trunk runs', the ensemble, daemon and
-           legacy phases' numbers, one JSON line of kernels, the nvidia-smi
-           line, and last {"ok": true, "device": {...}}.
+13. release the release path at full width on phase 10's K = 0 joint
+           artifact (shared backbone) and its split tree (Real, SynA-SynD;
+           SynD names no class of the artifact: skipped by the calibration
+           fit, scored as unseen), every tool through its main(argv) with
+           --bf16 at 512², batch 128, counts zeroed before each run and read
+           after, the device batches counted: tools/calibrate_ensemble fits
+           on train/ with the held-out ECE on test/, written as .pth and as
+           native (the same temperatures, reloaded, engaged by serving), and
+           fits the K = 1 generic-head artifact with its generic column;
+           tools/accuracy_study on test/ with and without the calibration,
+           tools/robustness_study at 20 dB SNR and the 8-kHz lowpass,
+           tools/decision_ab (its reference variant scores each class as the
+           uncalibrated pipeline's labels do). K1 once per batch and the conv
+           kernel 19 times per batch on the K = 0 artifact, K1 only on the
+           K = 1 one, nothing else. Then infer/export main() exports the
+           calibrated checkpoint on the card (bf16, 512², int16, entries 8
+           and 128; its bytes within 5% of its weights' and lifted constants'
+           bytes) and InferencePipeline.from_artifact loads it;
+           tools/artifact_drive holds it on test/ to the matched live forward
+           (bit for bit) and the production pipeline's labels on windows
+           clear by 0.05 (at least one in each drive), with no hand-written
+           kernel launched by the artifact: on the raw logits
+           (--no-calibration: the short fit's temperatures, at their bound,
+           put every calibrated sigmoid near 0.5), and the same for phase 6's
+           shared checkpoint, exported by the tool, with its calibration;
+           cli/serve --artifact's pipeline behind server.serve() answers
+           /analyze of the 20-s clip with from_artifact's JSON, calibration
+           applied, launching no kernel. Prints each tool's
+           seconds, the export's seconds and bytes, the windows/s on the
+           150 windows of the artifact, of the same artifact exported with
+           the float32 transport and of the live pipeline, in turns, and
+           the host's int16 quantization of those windows.
+14. report the train step's, the trunk runs', the ensemble, daemon, legacy
+           and release phases' numbers, one JSON line of kernels, the
+           nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -493,15 +525,23 @@ def device_ms(fn, names=(), calls: int = 10):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    # the profiler on the card has come back with no device event at all
+    # now and then (one trace in the runs of this script so far); such a
+    # trace measured nothing, so it is taken again, up to twice
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        print(f"[kernels] torch.profiler recorded no device event (trace {attempt + 1}); "
+              "tracing again", flush=True)
     split = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = next((k for k in names if k in e.name), e.name)
-            split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    for e in events:
+        name = next((k for k in names if k in e.name), e.name)
+        split[name] = split.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     return split
 
 
@@ -1777,7 +1817,9 @@ def drive_ensemble(zero_counts, counts, names, work, clip, n_windows, smi):
           + sum(v["launches"][names["k1"]] for v in served.values()))
     conv = sum(v["launches"][names["conv"]] for v in served.values())
     return {"joint": joint, "add_head": add, "serving": served, "steps": steps,
-            "k1_launches": k1, "conv_launches": conv}
+            "k1_launches": k1, "conv_launches": conv,
+            "paths": {"data": data, "k0": ckpts[0] + ".merged.pth",
+                      "k1": ckpts[1] + ".merged.pth"}}
 
 
 # ---------------------------------------------------------------------------
@@ -2162,6 +2204,287 @@ def drive_legacy(zero_counts, counts, work, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The release path
+# ---------------------------------------------------------------------------
+
+def run_tool(mod, argv):
+    """A study tool's main(argv) → (exit code, the JSON of its last stdout
+    line, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    return rc, json.loads(lines[-1]) if lines else None, seconds
+
+
+@contextlib.contextmanager
+def counting_dispatches():
+    """While open, counts (in the yielded list) the device batches every
+    InferencePipeline dispatches, without changing what it does."""
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
+
+    seen = [0]
+    forward = InferencePipeline._forward
+
+    def observed(self, batch, return_per_head=False):
+        seen[0] += 1
+        return forward(self, batch, return_per_head)
+
+    InferencePipeline._forward = observed
+    try:
+        yield seen
+    finally:
+        InferencePipeline._forward = forward
+
+
+def drive_release(zero_counts, counts, names, work, paths, clip20, windows, smi,
+                  device="cuda", size=512, bf16=True):
+    """Phase 13: the release path on phase 10's K = 0 joint artifact
+    (shared backbone) and its split tree (Real, SynA-SynD; SynD names no
+    class of the artifact), every tool through its main(argv), counts
+    zeroed before each run and read after, the device batches counted:
+    calibrate (fit on train/, ECE on test/, written as .pth and native,
+    and the K = 1 generic-head artifact), study (accuracy with and
+    without the calibration, robustness at 20 dB SNR and the 8-kHz
+    lowpass, the decision A/B), export the calibrated checkpoint (bf16,
+    512², int16, entries 8 and 128) and load it, drive it (artifact_drive
+    on test/, and on phase 6's shared checkpoint ``paths["shared"]``),
+    serve it (cli/serve --artifact's pipeline behind
+    infer/server.serve()), and the artifact's windows/s against the live
+    pipeline's, in turns. → report fields."""
+    import threading
+
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints.serialization import load_merged
+    from synthetic_audio_detection_tpu_torch.cli import serve as serve_cli
+    from synthetic_audio_detection_tpu_torch.infer import export, server
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
+    from synthetic_audio_detection_tpu_torch.tools import (
+        accuracy_study,
+        artifact_drive,
+        calibrate_ensemble,
+        decision_ab,
+        robustness_study,
+    )
+    from synthetic_audio_detection_tpu_torch.utils.config import (
+        AudioConfig,
+        InferenceConfig,
+        SpectrogramConfig,
+    )
+
+    kernels = device == "cuda" and bf16  # K1, and the conv kernel on a shared backbone
+    flags = ["--input-size", str(size), "--batch-size", str(BATCH), "--device", device]
+    flags += ["--bf16"] if bf16 else []
+    train, test = (os.path.join(paths["data"], s) for s in ("train", "test"))
+    k0, k1 = paths["k0"], paths["k1"]
+    cal_pth, cal_native = (os.path.join(work, f"release_k0_cal{e}") for e in (".pth", ".ckpt"))
+    out = {"seconds": {}, "launches": {}, "batches": {}}
+
+    def tool(label, mod, argv, shared=True):
+        zero_counts()
+        with counting_dispatches() as batches:
+            rc, rep, sec = run_tool(mod, argv + flags)
+        launches = counts()
+        check(rc == 0 and rep is not None, f"{label}: exit code {rc}")
+        n = batches[0]
+        want_conv = CONV_LAUNCHES_PER_BATCH * n if kernels and shared else 0
+        want_k1 = n if kernels else 0
+        print(f"[release] {label}: {sec:.2f} s, {n} device batches, launches {launches}",
+              flush=True)
+        check(n > 0 and launches[names["k1"]] == want_k1,
+              f"{label}: K1 launched {launches[names['k1']]} times for {n} batches")
+        check(launches[names["conv"]] == want_conv,
+              f"{label}: the conv kernel launched {launches[names['conv']]} times for {n} "
+              f"batches, not {want_conv}")
+        check(sum(launches.values()) == want_k1 + want_conv, f"{label}: other kernels {launches}")
+        out["seconds"][label], out["launches"][label], out["batches"][label] = sec, launches, n
+        return rep
+
+    # 1. calibrate
+    for path in (cal_pth, cal_native):
+        rep = tool(f"calibrate_ensemble → {os.path.basename(path)}", calibrate_ensemble,
+                   ["--merged-model", k0, "--fit-dir", train, "--eval-dir", test, "--output",
+                    path, "--store-column-thresholds"])
+        cal = rep["calibration"]
+        check(len(cal["temperatures"]) == len(names["classes"])
+              and all(np.isfinite(cal["temperatures"])), f"temperatures {cal['temperatures']}")
+        check(load_merged(path).calibration == cal, f"{path}: the calibration did not reload")
+        out.setdefault("calibration", cal)
+        out.setdefault("eval", rep["eval"])
+    print(f"[release] calibration of the K = 0 artifact: temperatures {cal['temperatures']}, "
+          f"fit ECE {cal['ece_before']} → {cal['ece_after']}; test/ ({rep['eval']['n_windows']} "
+          f"windows) ECE {rep['eval']['ece_before']} → {rep['eval']['ece_after']}", flush=True)
+    check(out["calibration"]["temperatures"] == cal["temperatures"],
+          "the .pth and native fits of the same tree differ")
+    served = InferencePipeline(load_merged(cal_native), spec=SpectrogramConfig.inference(size),
+                               compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+                               device=device)
+    check(served._cal == cal, "serving did not engage the calibration")
+    rep = tool("calibrate_ensemble K = 1 generic", calibrate_ensemble,
+               ["--merged-model", k1, "--fit-dir", train, "--output",
+                os.path.join(work, "release_k1_cal.ckpt"), "--store-column-thresholds",
+                "--column-threshold-method", "sidak"], shared=False)
+    gcal = rep["calibration"]
+    check(gcal["column_names"] == names["classes"][:-1] + ["__generic__", "Real"]
+          and len(gcal["temperatures"]) == len(names["classes"]) + 1,
+          f"the generic-head fit's columns {gcal['column_names']}")
+    out["generic_calibration"] = gcal
+
+    # 2. study
+    acc = tool("accuracy_study", accuracy_study, ["--merged-model", cal_pth, "--data-dir", test])
+    raw = tool("accuracy_study --no-calibration", accuracy_study,
+               ["--merged-model", cal_pth, "--data-dir", test, "--no-calibration"])
+    rob = tool("robustness_study", robustness_study,
+               ["--merged-model", cal_pth, "--data-dir", test, "--perturbations", "noise_snr20",
+                "lowpass_8k"])
+    ab = tool("decision_ab", decision_ab,
+              ["--merged-model", k0, "--fit-dir", train, "--data-dir", test, "--holdout",
+               names["holdout"], "--k", "1", "2"])
+    n_test = sum(len(fs) for _, _, fs in os.walk(test))
+    for label, rep in (("accuracy", acc), ("accuracy raw", raw)):
+        check(rep["n_segments"] == n_test and 0 <= rep["binary_accuracy"] <= 1
+              and np.isfinite(rep.get("binary_auc", 0.5)), f"{label}: {rep}")
+    check(all(v["n_segments"] == n_test for v in rob["perturbations"].values()),
+          f"robustness: {rob}")
+    check(ab["n_files"] == n_test and ab["variants"]["reference_unanimity_k1"]["per_class"]
+          == raw["per_class"], "decision_ab's reference variant is not the pipeline's rule")
+    print(f"[release] accuracy (calibrated): binary {acc['binary_accuracy']}, attribution "
+          f"{acc['attribution_accuracy']}, AUC {acc.get('binary_auc')}, EER "
+          f"{acc.get('binary_eer')}; uncalibrated binary {raw['binary_accuracy']}; robustness "
+          f"{json.dumps(rob['perturbations'])}; decision_ab reference Real TNR "
+          f"{ab['variants']['reference_unanimity_k1']['real_tnr']}, unseen TPR "
+          f"{ab['variants']['reference_unanimity_k1'].get('unseen_tpr')} (the pipeline's "
+          f"labels, class by class)", flush=True)
+    out["study"] = {"accuracy": {k: acc[k] for k in ("binary_accuracy", "attribution_accuracy",
+                                                     "binary_auc", "binary_eer") if k in acc},
+                    "robustness": rob["perturbations"],
+                    "decision_ab_reference": ab["variants"]["reference_unanimity_k1"]}
+
+    # 3. export and load
+    art = os.path.join(work, "release.sadpt")
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = export.main(["--merged-model", cal_pth, "--output", art, "--input-size", str(size),
+                          "--batch-sizes", f"8,{BATCH}", "--device", device]
+                         + (["--bf16"] if bf16 else []))
+    export_s = time.perf_counter() - t0
+    check(rc == 0, f"export exit code {rc}")
+    with open(art, "rb") as f:
+        meta, _ = export.read_header(f.read())
+    nbytes = os.path.getsize(art)
+    bound = meta["weights_nbytes"] + meta["constants_nbytes"]
+    t0 = time.perf_counter()
+    pipe = InferencePipeline.from_artifact(art, device=device)
+    load_s = time.perf_counter() - t0
+    print(f"[release] export (--bf16 {bf16}, {size}², int16, entries 8 and {BATCH}): "
+          f"{export_s:.2f} s; {nbytes} bytes = {nbytes / bound:.4f} × (weights "
+          f"{meta['weights_nbytes']} + lifted constants {meta['constants_nbytes']}); load "
+          f"{load_s:.2f} s; launches {counts()}", flush=True)
+    check(nbytes <= 1.05 * bound, "the artifact stores more than its weights once")
+    check(sum(counts().values()) == 0, "the export launched a hand-written kernel")
+    check(pipe._bucket_sizes == [8, BATCH] and pipe._cal == cal
+          and meta["platforms"] == [torch.device(device).type],
+          "the loaded artifact's buckets, calibration or platform")
+    out["export"] = {"seconds": export_s, "load_seconds": load_s, "nbytes": nbytes,
+                     "weights_nbytes": meta["weights_nbytes"],
+                     "constants_nbytes": meta["constants_nbytes"]}
+
+    # 4. drive: matched numerics and production labels, on the release
+    # artifact and on phase 6's shared checkpoint (exported by the tool).
+    # Each must leave windows clear of the decision boundaries, or its
+    # production check compares nothing: the release artifact's are its
+    # raw logits, as its fitted temperatures sit at the fit's bound and
+    # flatten every calibrated sigmoid onto 0.5
+    out["drive"] = {}
+    for label, model, extra in (("release artifact, raw logits", cal_pth,
+                                 ["--artifact", art, "--no-calibration"]),
+                                ("phase 6 shared checkpoint", paths["shared"], [])):
+        zero_counts()
+        rc, drive, sec = run_tool(artifact_drive, ["--merged-model", model, "--audio-dir", test,
+                                                   "--max-files", str(n_test)] + extra + flags)
+        print(f"[release] artifact_drive on test/, {label}: {sec:.2f} s, {json.dumps(drive)}",
+              flush=True)
+        check(rc == 0 and drive["ok"], f"artifact_drive failed ({label})")
+        check(drive["matched_bit_equal"], f"the matched logits are not bit for bit ({label})")
+        check(drive["production_clear_windows"] > 0,
+              f"no window clear of the decision boundaries ({label}): the production label "
+              f"check is empty")
+        check(drive["n_files"] == n_test and not any(drive["launches"]["artifact"].values()),
+              f"the artifact launched a hand-written kernel ({label})")
+        if kernels:
+            check(drive["launches"]["production"][names["k1"]] > 0,
+                  "the production pipeline did not take K1")
+        out["drive"][label] = {k: drive[k] for k in drive if k != "launches"}
+
+    # 5. serve: cli/serve --artifact's pipeline behind serve()
+    args = serve_cli.build_parser().parse_args(["--artifact", art, "--device", device])
+    spipe, _ = serve_cli.build_pipeline(args)
+    srv = server.serve(spipe, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        zero_counts()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        got = http(f"{url}/analyze?filename=20s.wav", open(clip20, "rb").read())
+        launches = counts()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.serving_state.close()
+        thread.join(timeout=10)
+    want = json.loads(json.dumps(spipe.analyze_file(clip20)))
+    check(spipe._cal == cal and got == {"filename": "20s.wav", **want},
+          "/analyze on the artifact is not from_artifact's JSON with the calibration")
+    check(sum(launches.values()) == 0, f"serving the artifact launched {launches}")
+    print(f"[release] serve --artifact: /analyze of the 20-s clip = from_artifact's JSON "
+          f"(calibration applied), labels {[s['label'] for s in got['segments']]}", flush=True)
+
+    # 6. the artifact's windows/s against the live pipeline's, in turns
+    live = InferencePipeline(load_merged(cal_pth), audio=AudioConfig(overlap=0.0),
+                             spec=SpectrogramConfig.inference(size),
+                             infer=InferenceConfig(batch_size=BATCH),
+                             compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+                             device=device)
+    # and the same artifact exported with the float32 transport, the live
+    # pipeline's: what the host's int16 quantization costs
+    f32t = InferencePipeline.from_artifact(export.export_serving(
+        load_merged(cal_pth), spec=SpectrogramConfig.inference(size), batch_sizes=(8, BATCH),
+        transport_dtype="float32", compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+        device=device), device=device)
+    wps = {"artifact": [], "artifact, float32 transport": [], "live": []}
+    for label, p in (("artifact", pipe), ("artifact, float32 transport", f32t), ("live", live),
+                     ("live", live), ("artifact, float32 transport", f32t),
+                     ("artifact", pipe)):
+        wps[label].append(windows_per_s(p, windows))
+    print(f"[release] windows/s at {size}², bf16 {bf16}, batch {BATCH}, {windows.shape[0]} "
+          f"windows (in turns, median of 5 each): "
+          + "; ".join(f"{k} {' / '.join(f'{v:.1f}' for v in vals)}" for k, vals in wps.items())
+          + f" | {smi}", flush=True)
+    # the host's share of the artifact's int16 transport: the quantization
+    # of the float32 windows before the copy (the live pipeline sends
+    # float32)
+    from synthetic_audio_detection_tpu_torch.audio.wavio import pcm16_quantize
+
+    quantize_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pcm16_quantize(windows)
+        quantize_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[release] host int16 quantization of the {windows.shape[0]} windows: "
+          f"{np.median(quantize_ms):.2f} ms (median of 5, host clock)", flush=True)
+    out["windows_per_s"] = wps
+    out["host_quantize_ms"] = float(np.median(quantize_ms))
+    out["k1_launches"] = sum(v[names["k1"]] for v in out["launches"].values())
+    out["conv_launches"] = sum(v[names["conv"]] for v in out["launches"].values())
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2424,10 +2747,19 @@ def main() -> int:
         t0 = time.perf_counter()
         legacy = drive_legacy(zero_counts, counts, work, smi)
         print(f"[legacy] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+        # 13. the release path
+        t0 = time.perf_counter()
+        release = drive_release(
+            zero_counts, counts, {"k1": k1.name, "conv": conv.name, "holdout": NEW_CLASS,
+                                  "classes": ENSEMBLE_CLASSES + ["Real"]},
+            work, {**ensemble.pop("paths"), "shared": paths["shared"]},
+            os.path.join(work, "20s.wav"), windows, smi)
+        print(f"[release] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 13. report
+    # 14. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -2437,11 +2769,13 @@ def main() -> int:
         "replaces": cuda_melspec.REPLACES,
         "launches": (sum(c[k1.name] for c in cli_launches.values()) + train["k1_launches"]
                      + sum(t["launches"][k1.name] for t in trunk.values())
-                     + ensemble["k1_launches"] + daemon["k1_launches"]),
+                     + ensemble["k1_launches"] + daemon["k1_launches"]
+                     + release["k1_launches"]),
         "serving_launches": sum(c[k1.name] for c in cli_launches.values()),
         "train_launches": train["k1_launches"],
         "ensemble_launches": ensemble["k1_launches"],
         "daemon_launches": daemon["k1_launches"],
+        "release_launches": release["k1_launches"],
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -2499,7 +2833,8 @@ def main() -> int:
         "library": LIBRARY_LOG_MEL,
         "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
     }]
-    conv_launches = path_launches[conv.name] + ensemble["conv_launches"] + daemon["conv_launches"]
+    conv_launches = (path_launches[conv.name] + ensemble["conv_launches"]
+                     + daemon["conv_launches"] + release["conv_launches"])
     tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5·max(1, √(K / 576)) for sums of K products "
            "(one bf16 ulp, and the sums' order near 0), bf16 out with ReLU on and off, and "
            "float32 out")
@@ -2514,6 +2849,7 @@ def main() -> int:
         "conv_path_launches": path_launches[conv.name],
         "ensemble_launches": ensemble["conv_launches"],
         "daemon_launches": daemon["conv_launches"],
+        "release_launches": release["conv_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "tol": tol,
         "per": f"the {CONV_LAUNCHES_PER_BATCH} conv-kernel launches of one 128-window batch "
@@ -2587,7 +2923,7 @@ def main() -> int:
                                    "what": f"bf16, ResNet-18, 512², {TRAIN_ROWS} rows, phase 1",
                                    "joint_cli": ensemble["joint"], "add_head_cli": ensemble[
                                        "add_head"], "serving": ensemble["serving"]},
-                      "daemon": daemon, "legacy": legacy}))
+                      "daemon": daemon, "legacy": legacy, "release": release}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

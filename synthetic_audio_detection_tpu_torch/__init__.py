@@ -1,5 +1,5 @@
 """Synthetic Audio Detection — PyTorch/CUDA port of the serving path, the
-submodel trainer and the ensemble-building path.
+submodel trainer, the ensemble-building path and the release path.
 
 A second package beside ``synthetic_audio_detection_tpu`` (the JAX
 reference, which stays as it is). On one NVIDIA GPU it serves a merged
@@ -31,6 +31,17 @@ and builds ensembles:
       merged artifact's frozen trunk, spliced in)
     cli/model_merger.py → ensemble/merger.py (sub-model checkpoints and a
       CSV recipe → a merged ensemble)
+
+and releases one:
+
+    tools/calibrate_ensemble.py → infer/study.py (the serving pipeline over
+      a labeled tree) → utils/calibration.py (per-column temperatures, ECE,
+      operating points) → the merged checkpoint's metadata
+    tools/accuracy_study.py, robustness_study.py, decision_ab.py (held-out
+      accuracy, AUC/EER, perturbations, decision rules)
+    infer/export.py (a torch.export program of the serving forward, the
+      weights once) → InferencePipeline.from_artifact → cli/serve.py
+      --artifact; tools/artifact_drive.py holds it to the live pipelines
 
 Every fresh model a trainer builds draws flax's default init
 (models/init.py), as the reference's ``model.init`` does.

@@ -3,11 +3,15 @@
 flags).
 
 ``--device`` picks the torch device (default ``cuda``); ``--device cuda``
-without a usable GPU is an error, never a CPU run. ``--artifact`` (serving
-an exported artifact) is not ported yet and exits with an error.
+without a usable GPU is an error, never a CPU run. ``--artifact`` serves an
+exported artifact (infer/export.py) instead of a checkpoint: its compute
+dtype, input size and batch entries were fixed at export, so ``--bf16``,
+``--input-size`` and ``--batch-size`` are ignored with a warning, while
+``--overlap``, ``--threshold`` and ``--no-calibration`` (host side) hold.
 
     python -m synthetic_audio_detection_tpu_torch.cli.serve \\
         --merged-model merged.pth --port 8321 --bf16
+    python -m synthetic_audio_detection_tpu_torch.cli.serve --artifact merged.sadpt
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ def build_parser() -> argparse.ArgumentParser:
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--merged-model", help="merged checkpoint (.pth or native msgpack)")
     src.add_argument("--artifact",
-                     help="serve from an exported artifact: not ported yet (ROADMAP ID 17, "
-                     "the export); refused")
+                     help="serve from an exported artifact (infer/export.py): no model code "
+                     "or checkpoint at load time")
     p.add_argument("--backbone", default="resnet18")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8321)
@@ -57,24 +61,30 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.artifact:
-        parser.error("--artifact is not ported: serving an exported artifact waits for the "
-                     "export (ROADMAP ID 17); serve the checkpoint with --merged-model")
-    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
-
+def build_pipeline(args):
+    """→ (the pipeline the flags ask for, what it serves)."""
     import torch
 
-    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
     from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
-    from synthetic_audio_detection_tpu_torch.infer.server import serve
     from synthetic_audio_detection_tpu_torch.utils.config import (
         AudioConfig,
         InferenceConfig,
         SpectrogramConfig,
     )
+
+    if args.artifact:
+        if args.bf16 or args.input_size != 512 or args.batch_size != 128:
+            logging.warning("--bf16/--input-size/--batch-size are baked into the artifact at "
+                            "export time; ignoring the CLI values")
+        # --overlap and --threshold stay host-side (windowing, decision rule)
+        pipeline = InferencePipeline.from_artifact(
+            args.artifact, audio=AudioConfig(overlap=args.overlap),
+            infer=InferenceConfig(threshold=args.threshold,
+                                  apply_calibration=not args.no_calibration),
+            device=args.device)
+        return pipeline, args.artifact
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
 
     ensemble = serialization.load_merged(args.merged_model, backbone=args.backbone)
     pipeline = InferencePipeline(
@@ -86,10 +96,20 @@ def main(argv=None) -> int:
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         device=args.device,
     )
+    return pipeline, args.merged_model
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+
+    from synthetic_audio_detection_tpu_torch.infer.server import serve
+
+    pipeline, source = build_pipeline(args)
     server = serve(pipeline, args.host, args.port, warmup=not args.no_warmup,
                    micro_batch=not args.no_micro_batch, linger_ms=args.linger_ms,
                    stream_ttl=args.stream_ttl, max_streams=args.max_streams)
-    logging.info("serving %s on http://%s:%d (classes: %s)", args.merged_model, args.host,
+    logging.info("serving %s on http://%s:%d (classes: %s)", source, args.host,
                  server.server_address[1], pipeline.ensemble.class_names)
     try:
         server.serve_forever()

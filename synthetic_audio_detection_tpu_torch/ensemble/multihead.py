@@ -133,7 +133,7 @@ class MultiHeadEnsemble(nn.Module):
         return self._compute_copy(("trunk",), self.trunk)
 
     def _compute_copy(self, key: tuple, net: ResNet) -> ResNet:
-        if self.dtype == torch.float32:
+        if next(net.parameters()).dtype == self.dtype:  # float32, or cast by in_compute_dtype
             return net
         return self._cached(key, lambda: copy.deepcopy(net).to(
             dtype=self.dtype, memory_format=torch.channels_last))
@@ -332,6 +332,25 @@ def with_dtype(ens: MultiHeadEnsemble, dtype: torch.dtype) -> MultiHeadEnsemble:
     """The same modules with ``dtype`` as the compute dtype (parameters
     stay float32)."""
     return _rebuild(ens, dtype=dtype)
+
+
+def in_compute_dtype(ens: MultiHeadEnsemble) -> MultiHeadEnsemble:
+    """A copy of the ensemble whose backbones (and trunk) are registered in
+    the compute dtype, as ``compute_backbone`` and ``compute_trunk`` would
+    copy them, so that a trace of its forward finds every weight among its
+    parameters, once, and makes no copy of its own (infer/export.py). The
+    heads stay float32: their stacking is part of the forward."""
+    def cast(net: ResNet) -> ResNet:
+        net = copy.deepcopy(net)
+        if ens.dtype == torch.float32:
+            return net
+        return net.to(dtype=ens.dtype, memory_format=torch.channels_last)
+
+    return MultiHeadEnsemble(
+        [cast(net) for net in ens.backbones], [copy.deepcopy(h) for h in ens.heads],
+        ens.class_names, ens.backbone_name, calibration=ens.calibration,
+        generic_head=ens.generic_head, dtype=ens.dtype,
+        trunk=None if ens.trunk is None else cast(ens.trunk))
 
 
 @torch.no_grad()

@@ -26,11 +26,17 @@ through the kernel's plain composition, with the same numerics. Elsewhere
 the knob has no effect.
 
 The pipeline runs on the GPU unless the caller asks for ``device="cpu"``.
+
+``InferencePipeline.from_artifact`` serves an exported artifact
+(infer/export.py) with the same host side: its device pass is the exported
+program (the float32 GEMM mel and the plain backbone, no hand-written
+kernel), at the artifact's batch entries only.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -177,10 +183,48 @@ class InferencePipeline:
         self.transport_dtype = transport_dtype
         self.use_fast_backbone = on_gpu and reduced and self.ensemble.shared_backbone
         self.conv3x3_max_channels = conv3x3_max_channels if self.use_fast_backbone else 0
+        self._bucket_sizes: Optional[List[int]] = None
+        self._program = None
+
+    @classmethod
+    def from_artifact(cls, path_or_bytes, audio: Optional[AudioConfig] = None,
+                      infer: Optional[InferenceConfig] = None,
+                      device: Any = "cuda") -> "InferencePipeline":
+        """Serve from an exported artifact (infer/export.py): no model code,
+        no checkpoint, the exported program is the forward. The host side
+        (windowing, silence gate, calibration from the header, decision
+        rule, smoothing, JSON) is the checkpoint pipeline's; only the
+        exported batch sizes exist (``_bucket`` snaps to them). Per-head
+        diagnostics need the parameters and are refused. The host audio
+        knobs come from the caller, the sample rate from the artifact."""
+        from synthetic_audio_detection_tpu_torch.infer import export
+
+        program, meta = export.load_artifact(path_or_bytes, device=device)
+        sizes = sorted(e["batch_size"] for e in meta["entries"])
+        self = cls.__new__(cls)
+        self.device = torch.device(device)
+        self.ensemble = export.ArtifactEnsemble(
+            class_names=list(meta["class_names"]), calibration=meta.get("calibration") or None,
+            generic_head=bool(meta.get("generic_head", False)))
+        self.audio = dataclasses.replace(audio or AudioConfig(), sample_rate=meta["sample_rate"])
+        self.spec = SpectrogramConfig(**meta["spec"])
+        self.infer = infer or InferenceConfig(batch_size=sizes[-1])
+        self._resolve_calibration()
+        self.compute_dtype = getattr(torch, meta["compute_dtype"])
+        self.use_kernel = self.use_fast_backbone = False
+        self.conv3x3_max_channels = 0
+        self.transport_dtype = meta["transport_dtype"]
+        self._bucket_sizes = sizes
+        self._program = program
+        return self
 
     def _forward(self, batch: torch.Tensor, return_per_head: bool = False):
+        # a float32 program runs with TF32 off: a process flag, not part of
+        # an exported graph, so the artifact's forward takes the scope too
         exact = self.compute_dtype == torch.float32
         with exact_float32() if exact else contextlib.nullcontext():
+            if self._program is not None:
+                return self._program(batch)
             return forward_windows(
                 self.ensemble, batch, self.spec, self.audio.sample_rate,
                 use_kernel=self.use_kernel,
@@ -227,6 +271,8 @@ class InferencePipeline:
     def _bucket(self, n: int) -> int:
         # two levels: 8 for short clips, the batch size otherwise; chosen
         # once per call, so a long recording's tail pads into the same bucket
+        if self._bucket_sizes is not None:  # an artifact: its exported sizes only
+            return next((s for s in self._bucket_sizes if n <= s), self._bucket_sizes[-1])
         return 8 if n <= 8 else self.infer.batch_size
 
     def _bucketed_batches(self, windows: np.ndarray, quantize: bool = True):
@@ -263,6 +309,7 @@ class InferencePipeline:
         n = self.ensemble.num_heads
         if windows.shape[0] == 0:
             return np.zeros((0, n + 1), np.float32), np.zeros((0, n, 2), np.float32)
+        self._refuse_artifact()
         agg_out, nh_out = [], []
         for batch, take in self._bucketed_batches(windows):
             agg, nh = self._forward(batch, return_per_head=True)
@@ -280,6 +327,7 @@ class InferencePipeline:
         if serving_numerics:
             _, logits_bn2 = self.logits_and_per_head(windows)
             return (1.0 / (1.0 + np.exp(-logits_bn2))).astype(np.float32)
+        self._refuse_artifact()
         ens32 = with_dtype(self.ensemble, torch.float32)
         out = []
         for batch, take in self._bucketed_batches(windows, quantize=False):
@@ -289,6 +337,12 @@ class InferencePipeline:
             out.append(nh.cpu().numpy().transpose(1, 0, 2)[:take])
         probs = 1.0 / (1.0 + np.exp(-np.concatenate(out, axis=0)))
         return probs.astype(np.float32)
+
+    def _refuse_artifact(self) -> None:
+        if self._program is not None:
+            raise NotImplementedError(
+                "per-head diagnostics need the parameters; this pipeline serves from an "
+                "exported artifact (from_artifact)")
 
     # -- full clip ----------------------------------------------------------
 

@@ -3,6 +3,7 @@
     python -m synthetic_audio_detection_tpu_torch.tools.profile_serving
     python -m synthetic_audio_detection_tpu_torch.tools.profile_serving \
         --routes front-k2,front-k1,front-k1-lowp
+    python -m synthetic_audio_detection_tpu_torch.tools.profile_serving --routes kernel,artifact
 
 Builds a shared-backbone ResNet-18 ensemble (3 heads, weights from
 ``--seed``) and a batch of seeded noise windows, runs the bf16
@@ -10,8 +11,11 @@ Builds a shared-backbone ResNet-18 ensemble (3 heads, weights from
 ``conv3x3_max_channels=512``, the 3x3 convs and 1x1 downsamples through the
 hand-written conv kernel; ``knob-0``: every conv the kernel's plain
 composition, a float32 cuDNN conv of the bf16 values with TF32 off, the
-same numerics; the 7x7 stem is the plain composition on both), warms it
-up, then traces ``--batches``
+same numerics; the 7x7 stem is the plain composition on both;
+``artifact``: the same ensemble exported on the card by infer/export.py,
+bf16, int16 transport, entries 8 and 128, served by
+``InferencePipeline.from_artifact``: the float32 GEMM mel and the plain
+bf16 ResNet), warms it up, then traces ``--batches``
 128-window batches with ``torch.profiler``. The ``front-*`` routes trace
 the mel-only front end alone on the same windows, already on the card:
 log-mel (``front-k2``: the strip kernel's ``fused_log_mel``; ``front-k1``:
@@ -39,6 +43,10 @@ PARTS: List[Tuple[str, Tuple[str, ...]]] = [
     ("H2D copy", ("Memcpy HtoD",)),
     ("D2H copy", ("Memcpy DtoH",)),
     ("conv kernel (K3)", ("conv3x3_",)),  # before "conv", which would take it
+    # cuBLAS's dense GEMMs (the artifact's float32 mel DFT), before cuDNN's
+    # "xmma" convolutions, whose implicit GEMMs say "fprop" or "convolve"
+    ("GEMM (mel DFT)", ("xmma_gemm", "_sgemm_")),
+    ("BatchNorm (eval)", ("batch_norm",)),
     ("K1 log-mel kernel", ("pad_bf16_kernel", "dft_mel_kernel", "db_standardize_kernel")),
     ("K2 log-mel kernel", ("strip_bf16_kernel", "strip_dft_kernel", "strip_tail_kernel")),
     ("max-pool", ("max_pool",)),
@@ -149,6 +157,12 @@ def main(argv=None) -> int:
         if route in log_mels:
             return lambda: melspec.finalize_features(log_mels[route](x, spec), spec).to(
                 torch.bfloat16)
+        if route == "artifact":
+            from synthetic_audio_detection_tpu_torch.infer import export
+
+            pipe = InferencePipeline.from_artifact(export.export_serving(
+                ens, spec=spec, compute_dtype=torch.bfloat16, device="cuda"), device="cuda")
+            return lambda: pipe.logits_for_windows(windows)
         pipe = InferencePipeline(ens, spec=spec, infer=InferenceConfig(),
                                  compute_dtype=torch.bfloat16, device="cuda",
                                  conv3x3_max_channels={"knob-0": 0, "kernel": 512}[route])

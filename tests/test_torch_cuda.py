@@ -855,3 +855,101 @@ def test_daemon_coalesced_verdicts_equal_lone_ones():
             assert [x for x, c in zip(la, clear) if c] == [x for x, c in zip(lb, clear) if c]
     finally:
         state.close()
+
+
+# ---------------------------------------------------------------------------
+# The release path
+# ---------------------------------------------------------------------------
+
+def _release_ensemble():
+    """The daemon tests' bf16-ready shared-backbone ensemble (3 heads)."""
+    sds = []
+    for seed in range(3):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            sds.append(BinaryClassifier().state_dict())
+    sds = [{**{k: v for k, v in sds[0].items() if k.startswith("base.")},
+            **{k: (v * 30.0 if k == "head.10.weight" else v) for k, v in sd.items()
+               if k.startswith("head.")}} for sd in sds]
+    return build_ensemble(sds, ["SynA", "SynB", "SynC", "Real"],
+                          calibration={"temperatures": [1.1, 0.9, 1.2, 0.8]})
+
+
+def _hand_launches():
+    return sum(m.KERNEL.launches for m in (cuda_melspec, cuda_melspec_strip, cuda_conv,
+                                           cuda_probes))
+
+
+@pytest.mark.cuda
+def test_release_export_on_the_card_reloads():
+    """A bf16 artifact exported on the card (entries 8 and 16, traced at
+    8) reloads there, is refused on the CPU, and serves through
+    from_artifact at both entries with the header's calibration."""
+    _cuda_or_skip()
+    from synthetic_audio_detection_tpu_torch.infer import export
+
+    data = export.export_serving(_release_ensemble(), spec=SpectrogramConfig.inference(
+        out_size=64), batch_sizes=(8, 16), device="cuda")
+    meta, _ = export.read_header(data)
+    assert meta["platforms"] == ["cuda"] and meta["compute_dtype"] == "bfloat16"
+    with pytest.raises(ValueError, match="exported for cuda"):
+        export.load_artifact(data, device="cpu")
+    pipe = InferencePipeline.from_artifact(data, device="cuda")
+    assert pipe._bucket_sizes == [8, 16] and pipe._cal is not None
+    for n in (3, 11):
+        logits = pipe.logits_for_windows(_waves(n, 128_000, seed=n).cpu().numpy())
+        assert logits.shape == (n, 4) and np.isfinite(logits).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_release_artifact_matches_the_matched_live_forward(dtype):
+    """The artifact against forward_windows with the exported flags (the
+    float32 GEMM mel, the plain ResNet) on the same int16 batch: the same
+    operators on the same operands, so the same bits (tools/artifact_drive.py
+    holds it so); and no hand-written kernel launches while it serves."""
+    _cuda_or_skip()
+    from synthetic_audio_detection_tpu_torch.ensemble.multihead import with_dtype
+    from synthetic_audio_detection_tpu_torch.infer import export
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import forward_windows
+
+    spec = SpectrogramConfig.inference(out_size=64)
+    ens = _release_ensemble()
+    program, _ = export.load_artifact(export.export_serving(
+        ens, spec=spec, batch_sizes=(8,), compute_dtype=dtype, device="cuda"), device="cuda")
+    w = (_waves(8, 128_000, seed=3).clamp(-1, 1) * 32767).to(torch.int16)
+    live = with_dtype(ens, dtype).cuda()
+    before = _hand_launches()
+    with exact_float32():
+        got = program(w).float().cpu().numpy()
+    assert _hand_launches() == before
+    with exact_float32():
+        want = forward_windows(live, w, spec, 32_000).float().cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_release_study_tools_launch_the_kernels_once_per_file(tmp_path):
+    """The study harness on a bf16 shared-backbone pipeline: each file's
+    windows go to the card alone, so K1 launches once and the conv kernel
+    19 times per file (one 8-bucket batch each), and nothing else."""
+    _cuda_or_skip()
+    from synthetic_audio_detection_tpu_torch.audio import wavio
+    from synthetic_audio_detection_tpu_torch.infer.study import collect_logits_tree, evaluate_tree
+
+    rng = np.random.default_rng(0)
+    for cls in ("Real", "SynA", "SynB"):
+        (tmp_path / cls).mkdir()
+        for i in range(2):
+            wavio.write_wav(str(tmp_path / cls / f"{i}.wav"),
+                            (rng.standard_normal(8 * 32_000) * 0.2).astype(np.float32), 32_000)
+    pipe = InferencePipeline(_release_ensemble(), spec=SpectrogramConfig.inference(out_size=64),
+                             infer=InferenceConfig(batch_size=128),
+                             compute_dtype=torch.bfloat16, device="cuda")
+    for fn in (collect_logits_tree, evaluate_tree):
+        k1, conv, total = (cuda_melspec.KERNEL.launches, cuda_conv.KERNEL.launches,
+                           _hand_launches())
+        fn(pipe, str(tmp_path))
+        assert cuda_melspec.KERNEL.launches - k1 == 6
+        assert cuda_conv.KERNEL.launches - conv == 19 * 6
+        assert _hand_launches() - total == 6 + 19 * 6

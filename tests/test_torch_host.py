@@ -1,5 +1,5 @@
 """The port's own copies of the reference package's host modules
-(utils/config, utils/calibration, utils/tb_writer, audio/wavio,
+(utils/config, utils/calibration (complete), utils/tb_writer, audio/wavio,
 audio/decode, audio/dsp's resample_poly_np, checkpoints/torch_compat)
 against the originals, so a copy cannot drift silently; and the port's
 device default."""
@@ -88,6 +88,27 @@ def test_apply_calibration_matches_reference():
                                   JCal.apply_calibration(logits, cal))
     with pytest.raises(ValueError):
         TCal.apply_calibration(logits, {"temperatures": [1.0, 2.0]})
+
+
+def test_calibration_copy_matches_reference():
+    """The port's utils/calibration.py holds every function of the
+    original, with the same bounds and the same values (the fitting in
+    full: tests/test_torch_calibration.py); it adds ``column_target``, the
+    fit's column targets, for the held-out ECE of the calibration tool."""
+    import inspect
+
+    def public(mod):
+        return {n for n, v in vars(mod).items()
+                if inspect.isfunction(v) and not n.startswith("_") and v.__module__ == mod.__name__}
+
+    assert public(TCal) - public(JCal) == {"column_target"}
+    assert public(JCal) <= public(TCal)
+    assert (TCal.T_MIN, TCal.T_MAX) == (JCal.T_MIN, JCal.T_MAX)
+    rng = np.random.default_rng(4)
+    z = rng.standard_normal((50, 3)) * 3
+    ci = rng.integers(0, 3, 50)
+    assert TCal.fit_ensemble_calibration(z, ci, ["A", "B", "Real"]) == \
+        JCal.fit_ensemble_calibration(z, ci, ["A", "B", "Real"])
 
 
 @pytest.mark.parametrize("subtype", ["PCM_16", "FLOAT"])

@@ -140,6 +140,56 @@ def test_serving_and_legacy_clis_run_without_importing_jax(tmp_path):
     assert "CODES [(0, True), (0, True), (0, True)] LOADED []" in res.stdout, res.stdout
 
 
+def test_release_path_runs_without_importing_jax(tmp_path):
+    """infer.export's main (a CPU artifact at 64²), the artifact served by
+    InferencePipeline.from_artifact, and the accuracy study's main on a
+    one-file tree, in an interpreter whose path holds only the
+    repository: nothing of JAX or the JAX package is loaded; the other
+    release modules import alike."""
+    code = f"""
+        import contextlib, io, json, os, sys, torch
+        import numpy as np
+        from synthetic_audio_detection_tpu_torch.audio import wavio
+        from synthetic_audio_detection_tpu_torch.checkpoints.serialization import save_merged_torch
+        from synthetic_audio_detection_tpu_torch.ensemble.multihead import build_ensemble
+        from synthetic_audio_detection_tpu_torch.infer import export
+        from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
+        from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+        from synthetic_audio_detection_tpu_torch.tools import accuracy_study
+        import synthetic_audio_detection_tpu_torch.infer.study
+        import synthetic_audio_detection_tpu_torch.tools.artifact_drive
+        import synthetic_audio_detection_tpu_torch.tools.calibrate_ensemble
+        import synthetic_audio_detection_tpu_torch.tools.decision_ab
+        import synthetic_audio_detection_tpu_torch.tools.robustness_study
+        import synthetic_audio_detection_tpu_torch.utils.calibration
+        torch.manual_seed(0)
+        torch.set_num_threads(2)
+        sds = [BinaryClassifier().state_dict() for _ in range(2)]
+        save_merged_torch("merged.pth", build_ensemble(sds, ["SynA", "SynB", "Real"]))
+        os.makedirs("tree/Real")
+        wavio.write_wav("tree/Real/a.wav", (np.random.default_rng(0).standard_normal(
+            32_000 * 4) * 0.2).astype(np.float32), 32_000)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_export = export.main(["--merged-model", "merged.pth", "--output", "m.sadpt",
+                                     "--input-size", "64", "--batch-sizes", "8",
+                                     "--device", "cpu"])
+            rc_study = accuracy_study.main(["--merged-model", "merged.pth", "--data-dir", "tree",
+                                            "--input-size", "64", "--batch-size", "8",
+                                            "--device", "cpu"])
+        study = json.loads(out.getvalue().strip().splitlines()[-1])
+        pipe = InferencePipeline.from_artifact("m.sadpt", device="cpu")
+        res = pipe.analyze_file("tree/Real/a.wav")
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN + (REFERENCE,)!r})
+        print("RC", rc_export, rc_study, study["n_segments"], len(res["segments"]),
+              "LOADED", loaded)
+    """
+    res = _run(code, tmp_path, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "RC 0 0 1 1 LOADED []" in res.stdout, res.stdout + res.stderr[-2000:]
+
+
 def test_every_port_module_imports_without_jax(tmp_path):
     code = f"""
         import pkgutil, importlib, sys

@@ -214,11 +214,13 @@ def test_stream_errors(daemon):
     assert post(f"{url}/stream/start")["stream_id"]
 
 
-def test_serve_cli_refuses_artifact(capsys):
-    with pytest.raises(SystemExit) as exc:
-        serve_cli.main(["--artifact", "model.sadx"])
-    assert exc.value.code != 0
-    assert "ID 17" in capsys.readouterr().err
+def test_serve_cli_refuses_artifact(tmp_path):
+    """--artifact serves the port's own artifacts (tests/test_torch_export.py)
+    and refuses the JAX package's StableHLO ``.sadx``, saying why."""
+    path = tmp_path / "model.sadx"
+    path.write_bytes(b"SADX1\n" + b"\0" * 64)
+    with pytest.raises(ValueError, match="JAX package"):
+        serve_cli.main(["--artifact", str(path), "--device", "cpu", "--port", "0"])
 
 
 def test_serve_cli_defaults_to_cuda(tmp_path):

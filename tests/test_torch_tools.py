@@ -22,6 +22,12 @@ from synthetic_audio_detection_tpu_torch.tools import profile_serving as P
     ("(anonymous namespace)::strip_tail_kernel(...)", "K2 log-mel kernel"),
     ("Memcpy HtoD (Pageable -> Device)", "H2D copy"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cuDNN convolutions"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x32_cgasize1x2x1", "GEMM (mel DFT)"),
+    ("ampere_sgemm_128x64_nn", "GEMM (mel DFT)"),
+    ("void implicit_convolve_sgemm<float, float, 1024, 5, 5, 3, 3, 3, 1, false, false, true>",
+     "cuDNN convolutions"),
+    ("void at::native::batch_norm_transform_input_channels_last_kernel<c10::BFloat16, float>",
+     "BatchNorm (eval)"),
     ("void at::native::max_pool_forward_nhwc<c10::BFloat16>", "max-pool"),
     ("void at::native::upsample_bilinear2d_out_frame<float>", "resize"),
     ("vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<c10::BFloat16>>",
