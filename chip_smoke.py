@@ -191,8 +191,36 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            150 windows of the artifact, of the same artifact exported with
            the float32 transport and of the live pipeline, in turns, and
            the host's int16 quantization of those windows.
-14. report the train step's, the trunk runs', the ensemble, daemon, legacy
-           and release phases' numbers, one JSON line of kernels, the
+14. data    the data-preparation path at full width on the host's cores and
+           the card: tools/gen_study_corpus writes a seeded raw corpus (Real,
+           SynthA, SynthB; 4 sources each, 13 s at 44.1 kHz, alternating mono
+           and stereo); tools/study_pipeline runs the six ETL CLIs over it,
+           each in a subprocess (rename, convert, augment, segment per class;
+           split; leakage audit): the renamed sources carry their
+           SHA-256[:16] names, every converted file is 32 kHz mono PCM_16,
+           11 augmented files a source with the CSV, segments of 4 s or a
+           source's trailing part, no source group on both sides, and an
+           .mp3 without ffmpeg gives the clear error, counted; each CLI's
+           seconds. audio/native builds libsadio from native/sadio.cpp in
+           this run: decode_batch over every segment within 1e-7 of wavio,
+           resample_poly within both float32 sums' rounding bound of
+           resample_poly_np, both paths' seconds. Then at 512², --bf16, 16
+           files a step, counts zeroed before and read after each run: the
+           submodel trainer CLI (Real vs SynthA, 2 epochs) and a Trainer
+           under checkpoint_backend="orbax" (Real vs SynthB, 2 epochs, then
+           an epoch at a time to a third save; max_to_keep 2): K1 once per
+           train step and no other kernel, finite losses; the retained step
+           directories (named by total_steps, the newest 2) restore bit for
+           bit to host copies taken at save time; the .pth twin resumes at
+           its epoch + 1 with its moments bit for bit; save()'s median ms
+           against wait()'s after an epoch of training. cli/model_merger
+           merges the two heads; cli/inference_runner (folder mode) serves
+           every test segment: every window labelled, K1 once per batch, the
+           conv kernel as the layout implies. utils/profiling.trace around
+           one serving batch writes a trace naming K1's DFT launch; a
+           StageTimer over 16 files reports each stage.
+15. report the train step's, the trunk runs', the ensemble, daemon, legacy,
+           release and data phases' numbers, one JSON line of kernels, the
            nvidia-smi line, and last {"ok": true, "device": {...}}.
 """
 
@@ -2485,6 +2513,490 @@ def drive_release(zero_counts, counts, names, work, paths, clip20, windows, smi,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The data-preparation path
+# ---------------------------------------------------------------------------
+
+# the seeded raw corpus of phase 14 (tools/gen_study_corpus): Real and two
+# synthetic generators, 44.1 kHz, alternating mono and stereo
+DATA_SYNTHETIC = 2
+DATA_FILES = 4  # sources a class: 8 took phase 14 past 100 s on the H100 machine (PERF.md §6)
+DATA_SECONDS = 13.0
+DATA_KEEP = 2  # max_to_keep of the trainer's step checkpointer
+
+
+def _host_tree(tree):
+    """A deep host copy of a payload tree (numpy leaves)."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return np.array(tree, copy=True)
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(b, dict):
+        return isinstance(a, dict) and a.keys() == b.keys() and all(
+            _trees_equal(a[k], b[k]) for k in b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool(np.array_equal(a, b))
+
+
+def check_etl(root, raw_names, seconds):
+    """The prepared tree: renamed sources carry their SHA-256[:16] names,
+    converted files are 32 kHz mono PCM_16, 11 augmented files a source with
+    the CSV, segments of 4 s or a source's trailing part, and no source
+    group on both sides of the split. → counts."""
+    import csv
+
+    from synthetic_audio_detection_tpu_torch.data import augment, etl
+
+    classes = sorted(raw_names)
+    n_segments = 0
+    for cls in classes:
+        renamed = sorted(os.listdir(os.path.join(root, "raw", cls)))
+        check(renamed == sorted(raw_names[cls]), f"{cls}: renamed files {renamed[:2]} are not "
+                                                 "the SHA-256[:16] names of the sources")
+        conv = sorted(os.listdir(os.path.join(root, "conv", cls)))
+        check(conv == renamed, f"{cls}: converted files {conv[:2]}")
+        for name in conv:
+            with open(os.path.join(root, "conv", cls, name), "rb") as f:
+                head = f.read(36)
+            tag, channels, rate = (int.from_bytes(head[20:22], "little"),
+                                   int.from_bytes(head[22:24], "little"),
+                                   int.from_bytes(head[24:28], "little"))
+            check((tag, channels, rate, int.from_bytes(head[34:36], "little")) == (1, 1, 32_000, 16),
+                  f"{cls}/{name}: not 32 kHz mono PCM_16 ({tag}, {channels}, {rate})")
+        aug = os.listdir(os.path.join(root, "aug", cls))
+        with open(os.path.join(root, f"aug_{cls}.csv"), newline="") as f:
+            rows = list(csv.DictReader(f))
+        check(len(aug) == len(rows) == len(augment.AUGMENTATIONS) * DATA_FILES
+              and sorted(r["output_file"] for r in rows) == sorted(aug),
+              f"{cls}: {len(aug)} augmented files, {len(rows)} CSV rows")
+        for src in conv:
+            base = os.path.splitext(src)[0]
+            check(sum(n.startswith(base + "_") for n in aug) == len(augment.AUGMENTATIONS),
+                  f"{cls}/{src}: not 11 augmented files")
+        # segments, by augmented file: 4 s each but the last, which is the rest
+        segs = {}
+        for side in ("train", "test"):
+            for name in os.listdir(os.path.join(root, "dataset", side, cls)):
+                base, idx = name[:-len(".wav")].rsplit("_Segment_", 1)
+                with open(os.path.join(root, "dataset", side, cls, name), "rb") as f:
+                    head = f.read(44)
+                segs.setdefault(base, {})[int(idx)] = int.from_bytes(head[40:44], "little") // 2
+        check(sorted(segs) == sorted(os.path.splitext(n)[0] for n in aug),
+              f"{cls}: segments do not cover the augmented files")
+        for base, parts in segs.items():
+            n = sorted(parts)
+            check(n == list(range(len(n))) and all(parts[i] == 4 * SR for i in n[:-1])
+                  and 0 < parts[n[-1]] <= 4 * SR, f"{cls}/{base}: segments {parts}")
+        n_segments += sum(len(p) for p in segs.values())
+    audit = etl.check_overlap(os.path.join(root, "dataset"))
+    check(audit.clean and set(audit.overlaps) == set(classes), "a source group on both sides")
+    # a non-WAV input without ffmpeg: the clear error, counted, no crash
+    bad = os.path.join(root, "mp3")
+    os.makedirs(bad)
+    with open(os.path.join(bad, "clip.mp3"), "wb") as f:
+        f.write(b"\xff\xfb\x90\x00not an mp3")
+    errors = etl.convert_directory(bad, bad + "_out")
+    if etl.have_ffmpeg():
+        print("[data] ffmpeg is installed here: the non-WAV error path is not reachable")
+    else:
+        check(errors == [f"{bad}/clip.mp3: non-WAV input requires ffmpeg (not installed)"],
+              f"the .mp3 without ffmpeg gave {errors}")
+    print(f"[data] ETL over {len(classes)} classes × {DATA_FILES} sources of {DATA_SECONDS:g} s "
+          f"at 44.1 kHz: {n_segments} segments; seconds per CLI (summed over classes): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; the .mp3 without ffmpeg: {len(errors)} error(s), no crash", flush=True)
+    return n_segments
+
+
+def check_native(root):
+    """libsadio built from native/sadio.cpp in this run; decode_batch over
+    the prepared segments against wavio (the JAX test's 1e-7), and
+    resample_poly against resample_poly_np within both float32 sums'
+    rounding bound. → report fields."""
+    from synthetic_audio_detection_tpu_torch.audio import native, wavio
+    from synthetic_audio_detection_tpu_torch.audio.resample import resample_poly_np, sinc_kernels
+    from synthetic_audio_detection_tpu_torch.ops import build
+
+    lib = build.host_library_path(native.SOURCE)
+    if lib.exists():
+        lib.unlink()  # built in this run, from the checkout's source
+    t0 = time.perf_counter()
+    check(native.available() and lib.exists(), "libsadio was not built into the build directory")
+    build_s = time.perf_counter() - t0
+    paths = sorted(os.path.join(d, n) for d, _, names in os.walk(os.path.join(root, "dataset"))
+                   for n in names)
+    t0 = time.perf_counter()
+    out, lengths, rates = native.decode_batch(paths, 4 * SR)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = [wavio.read_wav(p)[0].mean(axis=0) for p in paths]
+    wavio_s = time.perf_counter() - t0
+    err = 0.0
+    for i, r in enumerate(ref):
+        check(lengths[i] == len(r) and rates[i] == SR, f"{paths[i]}: decoded {lengths[i]} frames")
+        err = max(err, float(np.abs(out[i, :len(r)] - r).max()))
+        check(not out[i, len(r):].any(), f"{paths[i]}: padding not zero")
+    check(err <= 1e-7, f"native decode off wavio: {err} > 1e-7")
+    raw = sorted(os.path.join(d, n) for d, _, names in os.walk(os.path.join(root, "raw"))
+                 for n in names)
+    x = wavio.read_wav(raw[0])[0].mean(axis=0)
+    t0 = time.perf_counter()
+    got = native.resample_poly(x, 44_100, SR)
+    res_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = resample_poly_np(x, 44_100, SR)
+    res_np_s = time.perf_counter() - t0
+    kern, *_ = sinc_kernels(44_100, SR)
+    tol = 2 * kern.shape[1] * 2.0 ** -24 * float(np.abs(kern).sum(axis=1).max()) \
+        * float(np.abs(x).max())
+    res_err = float(np.abs(got - want).max())
+    check(got.shape == want.shape and res_err <= tol,
+          f"native resample off resample_poly_np: {res_err} > {tol}")
+    print(f"[data] native: libsadio built from native/sadio.cpp in {build_s:.2f} s; decode_batch "
+          f"of {len(paths)} segments {native_s:.3f} s (host clock, all cores) against wavio "
+          f"{wavio_s:.3f} s, max |diff| {err:.3g} (tol 1e-7); resample_poly of a "
+          f"{len(x) / 44_100:.1f}-s source to 32 kHz {res_native_s * 1e3:.1f} ms against "
+          f"resample_poly_np {res_np_s * 1e3:.1f} ms, max |diff| {res_err:.3g} (tol {tol:.3g})",
+          flush=True)
+    return dict(segments=len(paths), decode_native_s=native_s, decode_wavio_s=wavio_s,
+                decode_max_abs_err=err, resample_native_ms=res_native_s * 1e3,
+                resample_numpy_ms=res_np_s * 1e3, resample_max_abs_err=res_err,
+                resample_tol=tol, build_s=build_s)
+
+
+def drive_data_training(zero_counts, counts, k1_name, work, data):
+    """The submodel trainer CLI (Real vs SynthA, 2 epochs) and a Trainer
+    under checkpoint_backend="orbax" (Real vs SynthB, 2 epochs, then an
+    epoch at a time until three saves: the step checkpointer keeps
+    DATA_KEEP) on the prepared tree, bf16 at 512², 16 files a step; K1 once
+    per train step and no other kernel; the retained steps, their trees
+    against host copies taken at save time, and the .pth twin's resume.
+    → report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import torch_compat
+    from synthetic_audio_detection_tpu_torch.checkpoints.orbax_io import OrbaxCheckpointer
+    from synthetic_audio_detection_tpu_torch.cli import submodel_trainer
+    from synthetic_audio_detection_tpu_torch.data import dataset as ds
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+    from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig, TrainConfig
+
+    out = {"launches": {}, "steps": {}, "seconds": {}}
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI writes its logs/ where it runs
+    try:
+        with observing(Trainer) as seen:
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = submodel_trainer.main([
+                    "--data-dir", data, "--Class0", "Real", "--Class1", "SynthA", "--epochs",
+                    "2", "--batch-size", "16", "--input-size", "512", "--bf16", "--device",
+                    "cuda", "--workers", "8", "--checkpoint-dir", os.path.join(work, "ck_data"),
+                    "--log-dir", os.path.join(work, "runs_data")])
+            out["seconds"]["cli"] = time.perf_counter() - t0
+            check(rc == 0, f"trainer CLI on the prepared tree: exit code {rc}")
+            out["launches"]["cli"] = launches = counts()
+            tr = seen["trainers"][0]
+            out["steps"]["cli"] = (tr.train_steps_run, tr.eval_steps_run)
+    finally:
+        os.chdir(cwd)
+    check(launches[k1_name] == tr.train_steps_run > 0
+          and sum(launches.values()) == launches[k1_name],
+          f"trainer CLI: launches {launches} for {tr.train_steps_run} train steps")
+    check(all(np.isfinite(v) for v in seen["losses"]), "a loss of the CLI run is not finite")
+    print(f"[data] trainer CLI, Real vs SynthA, 2 epochs: {out['seconds']['cli']:.1f} s, "
+          f"{tr.train_steps_run} train and {tr.eval_steps_run} eval steps, launches {launches}; "
+          f"losses {['%.4f' % v for v in seen['losses']]}", flush=True)
+
+    # the Trainer under checkpoint_backend="orbax"
+    ck_dir = os.path.join(work, "ck_orbax")
+    path = os.path.join(ck_dir, "best_model.ckpt")
+    cfg = TrainConfig(data_dir=data, batch_size=16, epochs=2, compute_dtype="bfloat16",
+                      class1="SynthB", workers=8, checkpoint_dir=ck_dir,
+                      checkpoint_backend="orbax")
+    tr = Trainer(cfg, spec_cfg=SpectrogramConfig(mel_norm=None, out_size=512),
+                 log_dir=os.path.join(work, "runs_orbax"), device="cuda")
+    ckpt = tr.checkpointer = OrbaxCheckpointer(path + ".orbax", max_to_keep=DATA_KEEP)
+    saved, save_ms, wait_ms = {}, [], []
+    real_save = ckpt.save
+
+    def save(step, tree, metadata=None):
+        t0 = time.perf_counter()
+        ckpt.wait()  # the previous write, which an epoch of training overlapped
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
+        saved[int(step)] = (_host_tree(tree), json.loads(json.dumps(metadata)))
+        t0 = time.perf_counter()
+        real_save(step, tree, metadata)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    ckpt.save = save
+    with observing(Trainer) as seen:
+        zero_counts()
+        t0 = time.perf_counter()
+        tr.fit()
+        samples = ds.list_samples(data, "train", tr.class_names)
+        batcher = ds.WaveformBatcher(samples, cfg.batch_size, shuffle=True, workers=8,
+                                     seed=cfg.seed)
+        epoch = cfg.epochs
+        while len(saved) < DATA_KEEP + 1:  # an epoch at a time until retention shows
+            tr.train_epoch(batcher, epoch)
+            tr.save_checkpoint(epoch, path)
+            epoch += 1
+        t1 = time.perf_counter()
+        ckpt.wait()
+        final_wait_ms = (time.perf_counter() - t1) * 1e3
+        out["seconds"]["orbax"] = time.perf_counter() - t0
+        out["launches"]["orbax"] = launches = counts()
+    out["steps"]["orbax"] = (tr.train_steps_run, tr.eval_steps_run)
+    check(launches[k1_name] == tr.train_steps_run > 0
+          and sum(launches.values()) == launches[k1_name],
+          f"orbax Trainer: launches {launches} for {tr.train_steps_run} train steps")
+    check(all(np.isfinite(v) for v in seen["losses"]), "a loss of the orbax run is not finite")
+    steps = sorted(saved)
+    on_disk = sorted(int(n) for n in os.listdir(ckpt.directory) if n.isdigit())
+    check(on_disk == steps[-DATA_KEEP:] and ckpt.latest_step() == steps[-1],
+          f"retained steps {on_disk}, saved {steps}")
+    for step in on_disk:
+        tree, meta = ckpt.restore(step)
+        check(meta == saved[step][1] and meta["total_steps"] == step,
+              f"step {step}: metadata {meta}")
+        check(_trees_equal(tree, saved[step][0]),
+              f"step {step}: the restored tree differs from its host copy at save time")
+    # the .pth twin (the last save's) resumes at its epoch + 1, moments bit for bit
+    obj = torch.load(path + ".pth", map_location="cpu", weights_only=True)
+    res = Trainer(TrainConfig(data_dir=data, batch_size=16, epochs=epoch + 1,
+                              compute_dtype="bfloat16", class1="SynthB", workers=8,
+                              checkpoint_dir=os.path.join(work, "ck_orbax_resume"),
+                              resume=path + ".pth"),
+                  spec_cfg=SpectrogramConfig(mel_norm=None, out_size=512),
+                  log_dir=os.path.join(work, "runs_orbax"), device="cuda")
+    check(res.start_epoch == int(obj["epoch"]) + 1 == epoch,
+          f"resume started at {res.start_epoch}, saved epoch {obj['epoch']}")
+    mu, nu = res.state.moments()
+    keys = torch_compat.trainable_param_keys(obj["state_dict"], base_prefix="base.")
+    state = obj["optimizer"]["state"]
+    check(len(keys) == len(state) and int(res.state.count) == int(state[0]["step"]),
+          "resumed optimizer state")
+    for i, k in enumerate(keys):
+        check(torch.equal(mu[k].cpu(), state[i]["exp_avg"])
+              and torch.equal(nu[k].cpu(), state[i]["exp_avg_sq"]),
+              f"resumed moments of {k} differ from the .pth")
+    out["save_ms"] = float(np.median(save_ms))
+    out["wait_after_epoch_ms"] = float(np.median(wait_ms[1:]))
+    out["final_wait_ms"] = final_wait_ms
+    out["saved_steps"], out["retained_steps"] = steps, on_disk
+    print(f"[data] orbax Trainer, Real vs SynthB: {out['seconds']['orbax']:.1f} s, "
+          f"{tr.train_steps_run} train and {tr.eval_steps_run} eval steps, launches {launches}; "
+          f"saves at steps {steps}, kept {on_disk} (max_to_keep {DATA_KEEP}), each restored bit "
+          f"for bit; save() {out['save_ms']:.1f} ms median of {len(save_ms)} (host copy), wait() "
+          f"after an epoch of training {out['wait_after_epoch_ms']:.2f} ms median of "
+          f"{len(wait_ms) - 1}, wait() right after the last save {final_wait_ms:.1f} ms (host "
+          f"clock); the .pth twin resumes at epoch {res.start_epoch} with {len(keys)} moment "
+          f"pairs bit-equal; losses {['%.4f' % v for v in seen['losses']]}", flush=True)
+    del res
+    return out
+
+
+def trace_serving_batch(merged, logdir, *paths):
+    """One bf16 serving batch of ``paths``' windows at 512² under
+    utils/profiling.trace into ``logdir``, after a warm-up batch; prints the
+    window count."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import (
+        InferencePipeline,
+        preprocess_waveform,
+        slice_waveform,
+    )
+    from synthetic_audio_detection_tpu_torch.utils import profiling
+    from synthetic_audio_detection_tpu_torch.utils.config import (
+        AudioConfig,
+        InferenceConfig,
+        SpectrogramConfig,
+    )
+
+    audio = AudioConfig(overlap=0.0, silence_threshold=1e-3)
+    pipe = InferencePipeline(serialization.load_merged(merged), audio=audio,
+                             spec=SpectrogramConfig.inference(out_size=512),
+                             infer=InferenceConfig(), compute_dtype=torch.bfloat16, device="cuda")
+    windows = np.concatenate([slice_waveform(preprocess_waveform(p, audio), audio)[0]
+                              for p in paths])[:BATCH]
+    pipe.logits_for_windows(windows)  # warm
+    with profiling.trace(logdir):
+        with profiling.annotate("serving batch"):
+            pipe.logits_for_windows(windows)
+        torch.cuda.synchronize()
+    print(windows.shape[0])
+
+
+def drive_data_serving(zero_counts, counts, names, work, data):
+    """cli/model_merger merges the two heads trained on the prepared tree,
+    cli/inference_runner serves every test segment (folder mode, one JSON
+    a file): every window labelled, K1 once per batch, the conv kernel 19
+    times per batch on a shared backbone and never on another layout; then
+    utils/profiling.trace around one serving batch (K1 named in the trace)
+    and a StageTimer over the stages of a few files. → report fields."""
+    import logging
+
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+    from synthetic_audio_detection_tpu_torch.cli import inference_runner, model_merger
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import (
+        InferencePipeline,
+        preprocess_waveform,
+        slice_waveform,
+    )
+    from synthetic_audio_detection_tpu_torch.utils import profiling
+    from synthetic_audio_detection_tpu_torch.utils.config import (
+        AudioConfig,
+        InferenceConfig,
+        SpectrogramConfig,
+    )
+
+    recipe = os.path.join(work, "data_recipe.csv")
+    with open(recipe, "w") as f:
+        f.write("model_filename,synthetic_class,real_class\n"
+                "ck_data/best_model.ckpt.pth,SynthA,Real\n"
+                "ck_orbax/best_model.ckpt.pth,SynthB,Real\n")
+    merged = os.path.join(work, "data_merged.pth")
+    rc = _quiet(model_merger.main, ["--submodels-folder", work, "--csv-file", recipe,
+                                    "--output-path", merged, "--device", "cuda"])
+    check(rc == 0, f"merger on the prepared tree's heads: exit code {rc}")
+    ens = serialization.load_merged(merged)
+    layout = ("shared" if ens.shared_backbone else
+              f"trunk K={ens.shared_trunk_stages}" if ens.trunk is not None else "dense")
+    audio = AudioConfig(overlap=0.0, silence_threshold=1e-3)
+    classes = ens.synthetic_names + [ens.real_name]
+    out = {"layout": layout, "seconds": {}, "launches": {}, "windows": 0, "batches": 0}
+    root_logger = logging.getLogger()
+    level = root_logger.level
+    for cls in sorted(os.listdir(os.path.join(data, "test"))):
+        folder = os.path.join(data, "test", cls)
+        files = sorted(os.listdir(folder))
+        n_windows = {f: slice_waveform(preprocess_waveform(os.path.join(folder, f), audio),
+                                       audio)[0].shape[0] for f in files}
+        batches = sum(-(-n // BATCH) for n in n_windows.values())
+        zero_counts()
+        t0 = time.perf_counter()
+        root_logger.setLevel(logging.WARNING)  # one "wrote" line a file otherwise
+        try:
+            with counting_trunk_passes() as passes:
+                rc = _quiet(inference_runner.main, [
+                    "--merged-model", merged, "--audio-dir", folder, "--output-json",
+                    os.path.join(work, "data_serve", cls), "--bf16", "--input-size", "512",
+                    "--device", "cuda"])
+        finally:
+            root_logger.setLevel(level)
+        sec = time.perf_counter() - t0
+        launches = counts()
+        check(rc == 0, f"inference_runner on test/{cls}: exit code {rc}")
+        for f in files:
+            with open(os.path.join(work, "data_serve", cls, os.path.splitext(f)[0] + ".json")) as g:
+                res = json.load(g)
+            check(len(res["segments"]) == n_windows[f]
+                  and all(s["label"] in classes for s in res["segments"]),
+                  f"test/{cls}/{f}: {len(res['segments'])} labelled windows of {n_windows[f]}")
+        conv = CONV_LAUNCHES_PER_BATCH * batches if ens.shared_backbone else 0
+        check(launches[names["k1"]] == batches and launches[names["conv"]] == conv
+              and sum(launches.values()) == batches + conv,
+              f"test/{cls}: launches {launches} for {batches} batches ({layout})")
+        check(passes[0] == (batches if ens.trunk is not None else 0), f"test/{cls}: trunk passes")
+        out["seconds"][cls] = sec
+        out["launches"][cls] = launches
+        out["windows"] += sum(n_windows.values())
+        out["batches"] += batches
+        print(f"[data] serve test/{cls} ({len(files)} files, {sum(n_windows.values())} windows, "
+              f"{layout}, {ens.num_heads} heads): {sec:.2f} s (CLI wall), launches {launches}",
+              flush=True)
+
+    # one serving batch under the profiler, in a fresh interpreter: in this
+    # process, after the earlier phases' profiler sessions, torch.profiler's
+    # device trace kept every kernel of the batch but the three that the
+    # log-mel kernel's library launches (three full runs of this script; run
+    # alone, phase 14 traced them)
+    folder = os.path.join(data, "test", "Real")
+    paths = [os.path.join(folder, f) for f in sorted(os.listdir(folder))][:BATCH]
+    logdir = os.path.join(work, "data_trace")
+    traced = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+         "chip_smoke.trace_serving_batch(*sys.argv[2:])", REPO, merged, logdir, *paths],
+        capture_output=True, text=True, timeout=300)
+    check(traced.returncode == 0, f"the traced serving batch failed: {traced.stderr[-2000:]}")
+    traced_windows = int(traced.stdout.split()[-1])
+    files = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"trace files {files}")
+    with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = [e for e in kernels if "dft_mel_kernel" in e.get("name", "")]
+    check(any(e.get("name") == "serving batch" for e in events),
+          "the trace lacks the annotated serving batch")
+    check(len(k1_events) == 1, f"{len(k1_events)} K1 DFT launches among the trace's "
+                               f"{len(kernels)} kernels, not 1")
+    pipe = InferencePipeline(ens, audio=audio, spec=SpectrogramConfig.inference(out_size=512),
+                             infer=InferenceConfig(), compute_dtype=torch.bfloat16, device="cuda")
+    timer = profiling.StageTimer()
+    for p in paths[:16]:
+        with timer.stage("decode+window"):
+            w, stamps = slice_waveform(preprocess_waveform(p, audio), audio)
+        with timer.stage("device"):
+            logits = pipe.logits_for_windows(w)
+        with timer.stage("decide+json"):
+            pipe.analyze_windows(w, stamps, logits=logits)
+    report = timer.report()
+    check(sorted(timer.counts) == ["decide+json", "decode+window", "device"]
+          and all(v == 16 for v in timer.counts.values()), f"stage counts {timer.counts}")
+    print(f"[data] profiling.trace of one batch of {traced_windows} windows: "
+          f"{os.path.getsize(os.path.join(logdir, files[0]))} bytes, {len(kernels)} kernel "
+          f"events, {len(k1_events)} of K1's dft_mel_kernel | StageTimer over 16 files:\n"
+          + "\n".join(f"[data]   {line}" for line in report.splitlines()), flush=True)
+    out["trace_k1_events"] = len(k1_events)
+    out["stages"] = {k: timer.totals[k] / timer.counts[k] * 1e3 for k in timer.totals}
+    out["k1_launches"] = sum(v[names["k1"]] for v in out["launches"].values())
+    out["conv_launches"] = sum(v[names["conv"]] for v in out["launches"].values())
+    return out
+
+
+def drive_data(zero_counts, counts, names, work):
+    """Phase 14: a seeded raw corpus → the port's six ETL CLIs
+    (tools/study_pipeline, each CLI in a subprocess) → the native library →
+    two heads trained on the prepared tree (the CLI; the Trainer under the
+    orbax backend) → merged and served, with a trace. → report fields."""
+    import hashlib
+
+    from synthetic_audio_detection_tpu_torch.tools import gen_study_corpus, study_pipeline
+
+    root = os.path.join(work, "data_prep")
+    t0 = time.perf_counter()
+    gen_study_corpus.generate(root, DATA_SYNTHETIC, DATA_FILES, DATA_SECONDS, 44_100, 7)
+    corpus_s = time.perf_counter() - t0
+    raw_names = {}
+    for cls in os.listdir(os.path.join(root, "raw")):
+        folder = os.path.join(root, "raw", cls)
+        raw_names[cls] = []
+        for name in os.listdir(folder):
+            with open(os.path.join(folder, name), "rb") as f:
+                raw_names[cls].append(hashlib.sha256(f.read()).hexdigest()[:16] + ".wav")
+    print(f"[data] corpus: {sum(map(len, raw_names.values()))} sources in {corpus_s:.1f} s",
+          flush=True)
+    seconds = study_pipeline.run(root)  # the CLIs' own lines go to the output
+    out = {"corpus_s": corpus_s, "cli_seconds": seconds,
+           "segments": check_etl(root, raw_names, seconds)}
+    out["native"] = check_native(root)
+    data = os.path.join(root, "dataset")
+    out["train"] = drive_data_training(zero_counts, counts, names["k1"], work, data)
+    out["serve"] = drive_data_serving(zero_counts, counts, names, work, data)
+    out["k1_launches"] = (out["train"]["launches"]["cli"][names["k1"]]
+                          + out["train"]["launches"]["orbax"][names["k1"]]
+                          + out["serve"]["k1_launches"])
+    out["conv_launches"] = out["serve"]["conv_launches"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2756,10 +3268,16 @@ def main() -> int:
             work, {**ensemble.pop("paths"), "shared": paths["shared"]},
             os.path.join(work, "20s.wav"), windows, smi)
         print(f"[release] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+        # 14. the data-preparation path
+        t0 = time.perf_counter()
+        data = drive_data(zero_counts, counts, {"k1": k1.name, "conv": conv.name}, work)
+        data["phase_s"] = time.perf_counter() - t0
+        print(f"[data] phase took {data['phase_s']:.1f} s | {smi}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 14. report
+    # 15. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -2770,12 +3288,13 @@ def main() -> int:
         "launches": (sum(c[k1.name] for c in cli_launches.values()) + train["k1_launches"]
                      + sum(t["launches"][k1.name] for t in trunk.values())
                      + ensemble["k1_launches"] + daemon["k1_launches"]
-                     + release["k1_launches"]),
+                     + release["k1_launches"] + data["k1_launches"]),
         "serving_launches": sum(c[k1.name] for c in cli_launches.values()),
         "train_launches": train["k1_launches"],
         "ensemble_launches": ensemble["k1_launches"],
         "daemon_launches": daemon["k1_launches"],
         "release_launches": release["k1_launches"],
+        "data_launches": data["k1_launches"],
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -2834,7 +3353,8 @@ def main() -> int:
         "front_end_windows_per_s": {str(size): v for size, v in front_wps.items()},
     }]
     conv_launches = (path_launches[conv.name] + ensemble["conv_launches"]
-                     + daemon["conv_launches"] + release["conv_launches"])
+                     + daemon["conv_launches"] + release["conv_launches"]
+                     + data["conv_launches"])
     tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5·max(1, √(K / 576)) for sums of K products "
            "(one bf16 ulp, and the sums' order near 0), bf16 out with ReLU on and off, and "
            "float32 out")
@@ -2850,6 +3370,7 @@ def main() -> int:
         "ensemble_launches": ensemble["conv_launches"],
         "daemon_launches": daemon["conv_launches"],
         "release_launches": release["conv_launches"],
+        "data_launches": data["conv_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "tol": tol,
         "per": f"the {CONV_LAUNCHES_PER_BATCH} conv-kernel launches of one 128-window batch "
@@ -2923,7 +3444,8 @@ def main() -> int:
                                    "what": f"bf16, ResNet-18, 512², {TRAIN_ROWS} rows, phase 1",
                                    "joint_cli": ensemble["joint"], "add_head_cli": ensemble[
                                        "add_head"], "serving": ensemble["serving"]},
-                      "daemon": daemon, "legacy": legacy, "release": release}))
+                      "daemon": daemon, "legacy": legacy, "release": release,
+                      "data": data}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 """Synthetic Audio Detection — PyTorch/CUDA port of the serving path, the
-submodel trainer, the ensemble-building path and the release path.
+submodel trainer, the ensemble-building path, the release path and the
+data preparation.
 
 A second package beside ``synthetic_audio_detection_tpu`` (the JAX
 reference, which stays as it is). On one NVIDIA GPU it serves a merged
@@ -43,6 +44,16 @@ and releases one:
       weights once) → InferencePipeline.from_artifact → cli/serve.py
       --artifact; tools/artifact_drive.py holds it to the live pipelines
 
+and prepares the data:
+
+    tools/study_pipeline.py → the six ETL CLIs (cli/file_renamer,
+      audio_convert, audio_augmenter, audio_segmenter, dataset_manager,
+      file_manager), each in its own process → data/etl.py, data/augment.py,
+      audio/dsp.py (NumPy and SciPy, no torch) → a train/test tree;
+      audio/native.py binds the C++ audio library (native/sadio.cpp, built
+      with g++ at first use); checkpoints/orbax_io.py is the trainer's
+      step-indexed asynchronous checkpointer; utils/profiling.py traces
+
 Every fresh model a trainer builds draws flax's default init
 (models/init.py), as the reference's ``model.init`` does.
 
@@ -51,7 +62,7 @@ nothing of the reference package: it keeps its own copies of the host
 modules it needs (``audio/decode``, ``audio/wavio``, ``audio/resample``,
 ``utils/config``, ``utils/calibration``, ``utils/metrics``,
 ``utils/tb_writer``, ``checkpoints/torch_compat``, ``train/plateau``,
-``data/dataset``).
+``data/dataset``, ``audio/dsp``, ``data/etl``, ``data/augment``).
 """
 
 from __future__ import annotations

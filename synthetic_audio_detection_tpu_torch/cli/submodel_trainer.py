@@ -5,8 +5,7 @@ reference package's ``cli/submodel_trainer.py``: the same flags).
 without a usable GPU is an error, never a CPU run. ``--gpu`` and
 ``--num_gpus`` are accepted and ignored, as in the reference package. Not
 ported, and refused with a message: ``--s2d-layer1`` (the space-to-depth
-stage 1 works around the TPU's conv emitter) and the orbax checkpoint
-backend.
+stage 1 works around the TPU's conv emitter).
 
 Usage:
     python -m synthetic_audio_detection_tpu_torch.cli.submodel_trainer \\

@@ -6,6 +6,10 @@ build takes seconds). Libraries go to ``synthetic_audio_detection_tpu_torch/
 build/``, named by a hash of the sources and flags, and are built at first
 use. Several sources build in parallel: one ``nvcc`` process each, all
 started together. A missing ``nvcc`` or a failed build raises.
+
+``build_host`` does the same for a C++ source of the host path (the audio
+library ``native/sadio.cpp``) with ``g++`` and flags that do not depend on
+the building host's CPU.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# no -march=native: the library must load on any x86-64 (or aarch64) host
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall", "-Wextra")
 
 
 def find_nvcc() -> str:
@@ -93,3 +99,35 @@ def build_log(name: str) -> str:
     """The compiler's report from the build of ``csrc/<name>.cu``."""
     log = Path(str(_library_path(name)) + ".log")
     return log.read_text() if log.exists() else ""
+
+
+def host_library_path(source: Path) -> Path:
+    """Where ``build_host`` puts the library of ``source``: the build
+    directory, named by a hash of the source and the flags."""
+    source = Path(source)
+    digest = hashlib.sha256(source.name.encode() + source.read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(source: Path) -> Path:
+    """Compile the C++ ``source`` with ``g++`` into a shared library in the
+    build directory if it is not built yet, and return its path. Raises
+    RuntimeError with the compiler's output if ``g++`` is missing or the
+    build fails."""
+    path = host_library_path(source)
+    if path.exists():
+        return path
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {Path(source).name} cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    res = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, str(source)], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ {Path(source).name} (exit {res.returncode}):\n{res.stdout}")
+    os.replace(tmp, path)
+    return path

@@ -1,1 +1,2 @@
-"""Measurement scripts for the port (they need a GPU)."""
+"""Tools of the port: the study and release tools, the data-preparation
+chain, and measurement scripts (those need a GPU)."""

@@ -5,8 +5,9 @@ Seeded init (flax's defaults, ``models/init.py``, as the reference's
 ``model.init``), the frozen-backbone start, layer3 unfrozen at epochs // 3,
 per epoch a train pass (ReduceLROnPlateau stepped on its loss) and a
 validation pass with the classification report, best-validation-accuracy
-checkpoints in both formats (the native msgpack file and its ``.pth``
-twin), resume from either with ``start_epoch = saved epoch + 1``, and the
+checkpoints in both formats (the native msgpack file, or the step-indexed
+checkpointer of ``checkpoint_backend="orbax"``, and the ``.pth`` twin),
+resume from either with ``start_epoch = saved epoch + 1``, and the
 ``--evaluate`` pass with its confusion matrix.
 
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``;
@@ -32,6 +33,7 @@ import torch
 
 from synthetic_audio_detection_tpu_torch.audio import wavio
 from synthetic_audio_detection_tpu_torch.checkpoints import serialization, torch_compat
+from synthetic_audio_detection_tpu_torch.checkpoints.orbax_io import OrbaxCheckpointer
 from synthetic_audio_detection_tpu_torch.data import dataset as ds
 from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
 from synthetic_audio_detection_tpu_torch.models.init import flax_default_init_
@@ -173,9 +175,8 @@ class Trainer(StepTrainer):
     ):
         if cfg.s2d_stage1:
             raise ValueError("the space-to-depth stage 1 is not ported")
-        if cfg.checkpoint_backend != "native":
-            raise ValueError(f"checkpoint backend {cfg.checkpoint_backend!r} is not ported; "
-                             "use 'native'")
+        if cfg.checkpoint_backend not in ("native", "orbax"):
+            raise ValueError(f"unknown checkpoint backend {cfg.checkpoint_backend!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.spec_cfg = spec_cfg or SpectrogramConfig.train()
@@ -198,6 +199,9 @@ class Trainer(StepTrainer):
         self.layer3_unfrozen = False
         self.train_steps_run = 0
         self.eval_steps_run = 0
+        # the step-indexed checkpointer of checkpoint_backend="orbax", made at
+        # the first save beside its path (a caller may set its own first)
+        self.checkpointer = None
         bf16_on_card = self.compute_dtype == torch.bfloat16 and on_card
         self._transport = cfg.transport_dtype or ("int16" if bf16_on_card else "float32")
         self._dft = cfg.mel_dft or ("pallas" if bf16_on_card else None)
@@ -246,7 +250,11 @@ class Trainer(StepTrainer):
     def save_checkpoint(self, epoch: int, path: str) -> None:
         """The native file at ``path`` and its ``.pth`` twin at path +
         '.pth' (the reference trainer's contract; its optimizer entry holds
-        the phase-1 set's moments in torch AdamW's format)."""
+        the phase-1 set's moments in torch AdamW's format). Under
+        ``checkpoint_backend="orbax"`` the native file's payload and
+        metadata go instead to step ``total_steps`` of the step-indexed
+        checkpointer in path + '.orbax' (written in the background), and the
+        ``.pth`` twin as always."""
         count = int(self.state.count)
         mu, nu = self._moment_trees()
         sd = self.state_dict()
@@ -264,7 +272,12 @@ class Trainer(StepTrainer):
             "opt_state": serialization.optax_adamw_state(count, mu, nu,
                                                          float(self.state.lr)),
         }
-        serialization.save_native(path, payload, metadata=extra)
+        if self.cfg.checkpoint_backend == "orbax":
+            if self.checkpointer is None:
+                self.checkpointer = OrbaxCheckpointer(path + ".orbax")
+            self.checkpointer.save(extra["total_steps"], payload, metadata=extra)
+        else:
+            serialization.save_native(path, payload, metadata=extra)
         torch_opt = torch_compat.torch_optimizer_state_dict(
             count, mu, nu, lr=self.cfg.lr * float(self.state.lr_scale),
             weight_decay=self.cfg.weight_decay)
@@ -410,6 +423,8 @@ class Trainer(StepTrainer):
                 path = os.path.join(cfg.checkpoint_dir, "best_model.ckpt")
                 self.save_checkpoint(epoch, path)
                 log.info("saved best checkpoint (acc %.4f) -> %s", self.best_acc, path)
+        if self.checkpointer is not None:
+            self.checkpointer.wait()
         return self.best_acc
 
     def evaluate(self, data_dir: Optional[str] = None) -> EpochResult:

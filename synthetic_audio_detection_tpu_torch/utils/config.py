@@ -202,7 +202,8 @@ class TrainConfig:
     # 'threads' (data/dataset.py) or 'grain' (worker processes,
     # data/grain_pipeline.py)
     data_backend: str = "threads"
-    # 'native' (msgpack + the .pth twin); 'orbax' is not ported
+    # 'native' (msgpack + the .pth twin) or 'orbax' (step-indexed, asynchronous,
+    # with retention: checkpoints/orbax_io.py; + the .pth twin)
     checkpoint_backend: str = "native"
     # the space-to-depth stage 1 is not ported: must stay False
     s2d_stage1: bool = False

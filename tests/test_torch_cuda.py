@@ -953,3 +953,34 @@ def test_release_study_tools_launch_the_kernels_once_per_file(tmp_path):
         assert cuda_melspec.KERNEL.launches - k1 == 6
         assert cuda_conv.KERNEL.launches - conv == 19 * 6
         assert _hand_launches() - total == 6 + 19 * 6
+
+
+@pytest.mark.cuda
+def test_step_checkpointer_copies_cuda_tensors_before_returning(tmp_path, monkeypatch):
+    """save() of CUDA tensors returns with the write held back; in-place
+    updates on the card after it (as the trainer's AdamW makes) do not
+    reach the step, which holds the values at save time."""
+    import threading
+
+    from synthetic_audio_detection_tpu_torch.checkpoints.orbax_io import OrbaxCheckpointer
+
+    _cuda_or_skip()
+    release = threading.Event()
+    real = OrbaxCheckpointer._write
+
+    def held(self, *args):
+        assert release.wait(60)
+        real(self, *args)
+
+    monkeypatch.setattr(OrbaxCheckpointer, "_write", held)
+    w = torch.randn(256, 256, device="cuda")
+    want = w.cpu().numpy().copy()
+    ck = OrbaxCheckpointer(str(tmp_path / "ck"))
+    ck.save(1, {"w": w, "m": [w * 2]})
+    torch._foreach_add_([w], 1.0)
+    torch.cuda.synchronize()
+    release.set()
+    ck.wait()
+    tree, _ = ck.restore(1)
+    np.testing.assert_array_equal(tree["w"], want)
+    np.testing.assert_array_equal(tree["m"][0], want * 2)

@@ -246,3 +246,69 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _shadow_jax(tmp_path):
+    """A directory that, first on the path, makes jax, jaxlib, flax and
+    optax raise ImportError when imported."""
+    shadow = tmp_path / "shadow"
+    for name in FORBIDDEN:
+        (shadow / name).mkdir(parents=True)
+        (shadow / name / "__init__.py").write_text(
+            f"raise ImportError('{name} is not installed on this machine')\n")
+    return str(shadow)
+
+
+def test_data_preparation_runs_with_jax_unimportable(tmp_path):
+    """tools/gen_study_corpus and tools/study_pipeline (the six ETL CLIs in
+    subprocesses, which inherit the path) and audio/native, with jax,
+    jaxlib, flax and optax unimportable: every stage runs, and nothing of
+    JAX or the JAX package is loaded in the calling interpreter."""
+    code = f"""
+        import contextlib, io, os, sys
+        from synthetic_audio_detection_tpu_torch.audio import native
+        from synthetic_audio_detection_tpu_torch.tools import gen_study_corpus, study_pipeline
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_gen = gen_study_corpus.main(["--out", "c", "--classes", "1",
+                                            "--files-per-class", "1", "--seconds", "4.2"])
+        rc = study_pipeline.main(["c"])
+        seg = sorted(os.path.join(r, f) for r, _, fs in os.walk("c/dataset") for f in fs)
+        decoded, lengths, rates = native.decode_batch(seg, 32_000 * 4, threads=2)
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN + (REFERENCE,)!r})
+        print("RC", rc_gen, rc, native.available(), len(seg) > 0, bool((lengths > 0).all()),
+              set(rates.tolist()), "LOADED", loaded)
+    """
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "PYTHONSTARTUP")}
+    env["PYTHONPATH"] = os.pathsep.join([_shadow_jax(tmp_path), REPO])
+    # one BLAS thread in the augmenter's 8 workers, beside the suite's others
+    env["OPENBLAS_NUM_THREADS"] = env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
+    res = subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "RC 0 0 True True True {32000} LOADED []" in res.stdout, res.stdout + res.stderr[-2000:]
+    assert "No overlaps found" in res.stdout
+    res = subprocess.run([sys.executable, "-c", "import jax"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=60)
+    assert res.returncode != 0 and "not installed on this machine" in res.stderr
+
+
+def test_etl_modules_import_without_torch(tmp_path):
+    """audio/dsp, data/etl and data/augment (and the ETL CLIs' modules)
+    import without torch, so the augmenter's workers start without it."""
+    code = """
+        import sys
+        import synthetic_audio_detection_tpu_torch.audio.dsp
+        import synthetic_audio_detection_tpu_torch.data.augment
+        import synthetic_audio_detection_tpu_torch.data.etl
+        import synthetic_audio_detection_tpu_torch.tools.gen_study_corpus
+        import synthetic_audio_detection_tpu_torch.tools.study_pipeline
+        for name in ("file_renamer", "audio_convert", "audio_augmenter", "audio_segmenter",
+                     "dataset_manager", "file_manager"):
+            __import__(f"synthetic_audio_detection_tpu_torch.cli.{name}")
+        print("TORCH", sorted(m for m in sys.modules if m.split(".")[0] == "torch"))
+    """
+    res = _run(code, tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "TORCH []" in res.stdout, res.stdout

@@ -96,10 +96,15 @@ def test_trainer_defaults_to_cuda():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """The space-to-depth stage 1 stays unported; the orbax backend is
+    ported (tests/test_torch_orbax_io.py), and an unknown backend is
+    refused."""
     with pytest.raises(ValueError, match="not ported"):
         Trainer(TrainConfig(s2d_stage1=True), spec_cfg=SPEC, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        Trainer(TrainConfig(checkpoint_backend="orbax"), spec_cfg=SPEC, device="cpu")
+    with pytest.raises(ValueError, match="unknown checkpoint backend"):
+        Trainer(TrainConfig(checkpoint_backend="msgpack"), spec_cfg=SPEC, device="cpu")
+    assert Trainer(TrainConfig(checkpoint_backend="orbax"), spec_cfg=SPEC,
+                   device="cpu").checkpointer is None
 
 
 def test_fit_counts_steps_and_pads_batches(trained):
