@@ -219,9 +219,35 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            conv kernel as the layout implies. utils/profiling.trace around
            one serving batch writes a trace naming K1's DFT launch; a
            StageTimer over 16 files reports each stage.
-15. report the train step's, the trunk runs', the ensemble, daemon, legacy,
-           release and data phases' numbers, one JSON line of kernels, the
-           nvidia-smi line, and last {"ok": true, "device": {...}}.
+15. parallel torch.distributed in an NCCL group of world size 1 (a file
+           store in the build directory) at full width: the data-parallel
+           Trainer (its mesh) and the plain Trainer from one seed, 3 bf16
+           train steps (512², 32 rows, phase 1) on the same batches of phase
+           8's tree: parameters, BN statistics, moments and count bit for
+           bit, K1 once a step and nothing else, every step the same
+           all-reduces (STEP_ALL_REDUCES, the count of the CPU test on 2 and
+           3 ranks) and no other collective; python -m torch.distributed.run
+           --standalone --nproc-per-node 1 -m ...cli.submodel_trainer for one
+           epoch on phase 8's tree: exit 0, the checkpoint written once;
+           InferencePipeline(mesh=...) on phase 6's shared checkpoint over
+           the 150 windows (bf16, 512², batch 128): logits bit for bit with
+           the pipeline without a mesh, K1 once and the conv kernel 19 times
+           a batch, one all-gather a batch and no other collective; the
+           step's median ms without and with the group, in turns.
+16. int8   models/quantized.py on phase 6's shared checkpoint, on the 512²
+           bf16 features of the 150 windows (K1, the resize) in the 128
+           bucket: 20 _int_mm launches a batch; the card against the CPU on
+           2 windows (stem accumulators bit for bit, logits within 1e-4);
+           argmax agreement with the float32 pipeline: reported for windows
+           whose float32 top logit leads by more than 0.05, and required on
+           every window whose lead exceeds the largest change int8 makes to
+           such a lead on 128 held-out windows of another clip (at least
+           one); windows/s of the int8 backbone and heads against the bf16
+           default route on the same features, in turns.
+17. report the train step's, the trunk runs', the ensemble, daemon, legacy,
+           release, data, parallel and int8 phases' numbers, one JSON line
+           of kernels, the nvidia-smi line, and last {"ok": true, "device":
+           {...}}.
 """
 
 from __future__ import annotations
@@ -2997,6 +3023,305 @@ def drive_data(zero_counts, counts, names, work):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: torch.distributed on one card (an NCCL group of world size 1)
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS = 3
+# the data-parallel submodel step's collectives in phase 1 (the gradient
+# stops at stage 4), all all-reduces, as tests/test_torch_distributed.py
+# counts them on 2 and 3 CPU ranks: the global weight sum, one per
+# train-mode BatchNorm (20 in the ResNet-18, 2 in the head), one more in
+# the backward pass of each BatchNorm past the stop (5 in layer4, 2 in the
+# head), the gradients, the metrics
+STEP_ALL_REDUCES = 1 + 22 + 7 + 1 + 1
+
+
+def drive_parallel(zero_counts, counts, names, work, shared_path, windows, smi):
+    """Phase 15: an NCCL group of world size 1 at full width. The
+    data-parallel Trainer (its mesh) and the plain one from one seed, 3
+    bf16 steps on the same batches of phase 8's tree: parameters, BN
+    statistics, moments and count bit for bit, K1 once a step, the same
+    all-reduces every step; the submodel trainer CLI under torchrun
+    (--nproc-per-node 1) for one epoch; InferencePipeline(mesh=...) on
+    phase 6's shared checkpoint over the 150 windows, logits bit for bit
+    with the pipeline without a mesh, K1 once and the conv kernel 19 times
+    a batch, one all-gather a batch; the step's median ms with and
+    without the group, in turns. → report fields."""
+    import torch
+    import torch.distributed as dist
+
+    from synthetic_audio_detection_tpu_torch.checkpoints.serialization import load_merged_torch
+    from synthetic_audio_detection_tpu_torch.data import dataset as ds
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
+    from synthetic_audio_detection_tpu_torch.parallel import sharding as sh
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+    from synthetic_audio_detection_tpu_torch.utils.config import (
+        AudioConfig,
+        InferenceConfig,
+        SpectrogramConfig,
+        TrainConfig,
+    )
+
+    out = {}
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(work, "nccl_init"),
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    try:
+        mesh = sh.create_mesh()
+        check(mesh.shape == {"data": 1, "model": 1} and mesh.device == torch.device("cuda", 0),
+              f"the one-rank mesh: {mesh.shape} on {mesh.device}")
+        cfg = TrainConfig(batch_size=16, compute_dtype="bfloat16", class1="SynthA", workers=8)
+        spec = SpectrogramConfig(mel_norm=None, out_size=512)
+        trainers = {name: Trainer(cfg, spec_cfg=spec, log_dir=os.path.join(work, f"runs_{name}"),
+                                  device="cuda", use_mesh=False, mesh=m)
+                    for name, m in (("plain", None), ("mesh", mesh))}
+        data = os.path.join(work, "train_data")
+        samples = [s for s in ds.list_samples(data, "train", ["Real", "SynthA"])
+                   if not s[0].endswith("short.wav")][:16 * PARALLEL_STEPS]
+        batches = list(trainers["plain"]._batches(
+            ds.WaveformBatcher(samples, 16, shuffle=False, workers=8), 0, TRAIN_ROWS))
+        check(len(batches) == PARALLEL_STEPS and all(
+            b["audio"].shape[0] == TRAIN_ROWS and b["audio"].dtype == torch.int16 for b in batches),
+            "phase 15's batches")
+        launches, per_step = {}, []
+        for name, tr in trainers.items():
+            zero_counts()
+            for b in batches:
+                mesh.counts.clear()
+                tr._train_step(tr.state, b, tr.generator)
+                if name == "mesh":
+                    per_step.append(dict(mesh.counts))
+            torch.cuda.synchronize()
+            launches[name] = counts()
+        plain, meshed = trainers["plain"], trainers["mesh"]
+        a, b = plain.model.state_dict(), meshed.model.state_dict()
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        differ += [n for n, x, y in zip(plain.state.names * 2, plain.state.mu + plain.state.nu,
+                                        meshed.state.mu + meshed.state.nu)
+                   if not torch.equal(x, y)]
+        print(f"[parallel] {PARALLEL_STEPS} bf16 steps at 512², {TRAIN_ROWS} rows, NCCL world "
+              f"size 1 against no group: {len(differ)} tensors differ (parameters, BN "
+              f"statistics, moments); count {int(plain.state.count)} / "
+              f"{int(meshed.state.count)}; collectives a step {per_step}; launches {launches}",
+              flush=True)
+        check(not differ, f"the data-parallel steps differ from the plain ones: {differ[:4]}")
+        check(int(plain.state.count) == int(meshed.state.count) == PARALLEL_STEPS, "Adam count")
+        check(all(c == {"all_reduce": STEP_ALL_REDUCES} for c in per_step),
+              f"collectives a step {per_step}, not {STEP_ALL_REDUCES} all-reduces")
+        for name in trainers:
+            check(launches[name][names["k1"]] == PARALLEL_STEPS
+                  and sum(launches[name].values()) == PARALLEL_STEPS,
+                  f"{name} steps: K1 once a step and nothing else, {launches[name]}")
+        out["steps"] = {"tensors_differing": len(differ), "collectives_per_step": per_step[0],
+                        "launches": launches["mesh"]}
+
+        # the trainer CLI under torchrun, one process
+        ck = os.path.join(work, "ck_torchrun")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+             "-m", "synthetic_audio_detection_tpu_torch.cli.submodel_trainer", "--data-dir", data,
+             "--Class0", "Real", "--Class1", "SynthA", "--batch-size", "16", "--input-size", "512",
+             "--bf16", "--device", "cuda", "--workers", "8", "--epochs", "1",
+             "--checkpoint-dir", ck, "--log-dir", os.path.join(work, "runs_torchrun")],
+            cwd=work, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        saves = (proc.stdout + proc.stderr).count("saved best checkpoint")
+        print(f"[parallel] torchrun --nproc-per-node 1 submodel_trainer, 1 epoch: exit "
+              f"{proc.returncode} in {seconds:.1f} s, {saves} checkpoint save(s)", flush=True)
+        check(proc.returncode == 0, f"torchrun trainer exit {proc.returncode}:\n"
+                                    f"{proc.stderr[-3000:]}")
+        check(saves == 1 and all(os.path.exists(os.path.join(ck, f))
+                                 for f in ("best_model.ckpt", "best_model.ckpt.pth")),
+              "the torchrun trainer's checkpoint, written once")
+        out["torchrun"] = {"seconds": seconds, "saves": saves}
+
+        # data-parallel serving on the shared checkpoint
+        kw = dict(audio=AudioConfig(overlap=0.0, silence_threshold=1e-3),
+                  spec=SpectrogramConfig.inference(out_size=512), infer=InferenceConfig(),
+                  compute_dtype=torch.bfloat16, device="cuda")
+        p_plain = InferencePipeline(load_merged_torch(shared_path), **kw)
+        p_mesh = InferencePipeline(load_merged_torch(shared_path), mesh=mesh, **kw)
+        zero_counts()
+        mesh.counts.clear()
+        l_mesh = p_mesh.logits_for_windows(windows)
+        serve_launches, coll = counts(), dict(mesh.counts)
+        l_plain = p_plain.logits_for_windows(windows)
+        n_batches = -(-windows.shape[0] // BATCH)
+        print(f"[parallel] InferencePipeline(mesh=...) on {windows.shape[0]} windows: logits "
+              f"{'bit-equal' if np.array_equal(l_mesh, l_plain) else 'DIFFERENT'} to no mesh "
+              f"(max diff {float(np.abs(l_mesh - l_plain).max()):.3g}); launches "
+              f"{serve_launches}; collectives {coll}", flush=True)
+        check(np.array_equal(l_mesh, l_plain), "data-parallel serving logits differ")
+        check(serve_launches[names["k1"]] == n_batches
+              and serve_launches[names["conv"]] == CONV_LAUNCHES_PER_BATCH * n_batches
+              and sum(serve_launches.values()) == (1 + CONV_LAUNCHES_PER_BATCH) * n_batches,
+              f"data-parallel serving launches {serve_launches}")
+        check(coll == {"all_gather": n_batches}, f"serving collectives {coll}")
+        out["serving"] = {"launches": serve_launches, "collectives": coll}
+
+        # the step with and without the group, in turns
+        times = {"plain": [], "mesh": []}
+        for name in ("plain", "mesh", "mesh", "plain"):
+            tr, b = trainers[name], batches[0]
+            times[name].append(median_ms(lambda: tr._train_step(tr.state, b, tr.generator)))
+        print(f"[parallel] bf16 train step, 512², {TRAIN_ROWS} rows, median of 20 (CUDA "
+              f"events): no group {' / '.join(f'{v:.3f}' for v in times['plain'])} ms, NCCL "
+              f"world size 1 {' / '.join(f'{v:.3f}' for v in times['mesh'])} ms | {smi}",
+              flush=True)
+        out["step_ms"] = times
+        out["k1_launches"] = launches["mesh"][names["k1"]] + serve_launches[names["k1"]]
+        out["conv_launches"] = serve_launches[names["conv"]]
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the int8 PTQ backbone on the card
+# ---------------------------------------------------------------------------
+
+def lead_error(l32, l8):
+    """The largest change, over the windows, that ``l8`` makes to the lead
+    of ``l32``'s top logit over any other logit of its window."""
+    rows = np.arange(l32.shape[0])
+    top = l32.argmax(1)
+    lead32 = l32[rows, top][:, None] - l32
+    lead8 = l8[rows, top][:, None] - l8
+    return float(np.abs(lead8 - lead32).max())
+
+
+def int8_features(windows):
+    """The bf16 serving pipeline's 512² features of ``windows`` (numpy
+    [n, T]), in 128-window buckets (the last padded with silent windows):
+    K1, the resize, bf16, three channels. → [buckets × 128, 3, 512, 512]."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.ops import melspec
+    from synthetic_audio_detection_tpu_torch.ops.cuda_melspec import serving_log_mel
+    from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
+
+    spec = SpectrogramConfig.inference(out_size=512)
+    n = -(-windows.shape[0] // BATCH) * BATCH
+    padded = np.zeros((n, windows.shape[1]), np.float32)
+    padded[:windows.shape[0]] = windows
+    out = []
+    for b in torch.from_numpy(padded).cuda().split(BATCH):
+        z = serving_log_mel(b, spec, SR)
+        out.append(melspec.replicate_channels(melspec.finalize_features(z, spec)
+                                              .to(torch.bfloat16), 3))
+    return torch.cat(out)
+
+
+def drive_int8(shared_path, windows, l32, p32, smi):
+    """Phase 16: the int8 ensemble (models/quantized.py) of phase 6's
+    shared checkpoint on the 512² bf16 features of the 150 windows, in the
+    128 bucket: the card against the CPU on 2 windows (stem accumulators
+    bit for bit, logits within 1e-4); argmax agreement with the float32
+    pipeline on clear windows; int8 windows/s against the bf16 default
+    route on the same features, in turns; _int_mm launches a batch.
+    → report fields.
+
+    Clear windows. Agreement where the float32 top logit leads by 0.05 is
+    reported; the check uses the margin the reference's int8 scheme
+    itself needs, since its per-tensor activation scales over a 128-window
+    batch flip windows clear by 0.05 (PERF.md §6): the largest
+    change int8 makes, on 128 held-out windows of another clip, to a
+    float32 top logit's lead over any other (``lead_error``). A window
+    clear by more than that must keep its argmax, and at least one must
+    be clear."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.checkpoints.serialization import load_merged_torch
+    from synthetic_audio_detection_tpu_torch.ensemble.multihead import (
+        _aggregate,
+        ensemble_per_head_logits,
+        with_dtype,
+    )
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import slice_waveform
+    from synthetic_audio_detection_tpu_torch.models import quantized
+    from synthetic_audio_detection_tpu_torch.utils.config import AudioConfig
+
+    ens = load_merged_torch(shared_path)
+    check(ens.shared_backbone, "phase 6's checkpoint has a shared backbone")
+    t0 = time.perf_counter()
+    q = quantized.quantize_ensemble(ens, device="cuda")
+    quant_s = time.perf_counter() - t0
+    n = windows.shape[0]
+    x = int8_features(windows)
+
+    def int8_logits(feats):
+        return torch.cat([quantized.quantized_ensemble_forward(q, b)
+                          for b in feats.split(BATCH)]).cpu().numpy()
+
+    quantized.INT_MM.launches = 0
+    li8 = int8_logits(x)[:n]
+    torch.cuda.synchronize()
+    per_batch = quantized.INT_MM.launches / (x.shape[0] // BATCH)
+    check(li8.shape == (n, len(NAMES)) and np.isfinite(li8).all(), "int8 logits")
+    check(per_batch == 20, f"{per_batch} _int_mm launches a batch, not 20 (one a conv)")
+
+    # the card against the CPU on 2 windows
+    small = x[:2].float()
+    q_cpu = quantized.quantize_ensemble(ens, device="cpu")
+    acc_gpu, s_gpu = quantized.qconv_accumulators(small.permute(0, 2, 3, 1),
+                                                  q.qbackbone["stem"], 2)
+    acc_cpu, s_cpu = quantized.qconv_accumulators(small.cpu().permute(0, 2, 3, 1),
+                                                  q_cpu.qbackbone["stem"], 2)
+    stem_equal = float(s_gpu) == float(s_cpu) and torch.equal(acc_gpu.cpu(), acc_cpu)
+    l_gpu = quantized.quantized_ensemble_forward(q, small).cpu().numpy()
+    l_cpu = quantized.quantized_ensemble_forward(q_cpu, small.cpu()).numpy()
+    card_vs_cpu = float(np.abs(l_gpu - l_cpu).max())
+    print(f"[int8] card against CPU, 2 windows at 512²: stem accumulators "
+          f"{'bit-equal' if stem_equal else 'DIFFERENT'}; logits max diff {card_vs_cpu:.3g} "
+          f"(tol 1e-4)", flush=True)
+    check(stem_equal, "the card's stem accumulators differ from the CPU's")
+    check(card_vs_cpu <= 1e-4, "the card's int8 logits differ from the CPU's")
+
+    # argmax agreement with the float32 pipeline
+    audio = AudioConfig(overlap=0.0, silence_threshold=1e-3)
+    held, _ = slice_waveform(make_clip(4 * BATCH, seed=16), audio)
+    check(held.shape[0] == BATCH, "the held-out clip's windows")
+    err_cal = lead_error(p32.logits_for_windows(held), int8_logits(int8_features(held)))
+    top = np.sort(l32, axis=1)
+    margin = top[:, -1] - top[:, -2]
+    agree = l32.argmax(1) == li8.argmax(1)
+    need = max(0.05, err_cal)
+    clear, clear05 = margin > need, margin > 0.05
+    bad = [(int(i), round(float(margin[i]), 3)) for i in np.flatnonzero(clear05 & ~agree)]
+    print(f"[int8] argmax against float32: {int(agree[clear05].sum())}/{int(clear05.sum())} "
+          f"windows clear by 0.05 agree (disagreeing windows and margins {bad}); int8 moved "
+          f"a top logit's lead by up to {err_cal:.3f} on 128 held-out windows, so "
+          f"{int(agree[clear].sum())}/{int(clear.sum())} windows clear by {need:.3f} agree; "
+          f"{int(agree.sum())}/{n} overall; |int8 − float32| max "
+          f"{float(np.abs(li8 - l32).max()):.3f} mean {float(np.abs(li8 - l32).mean()):.3f}, "
+          f"corr {float(np.corrcoef(li8.ravel(), l32.ravel())[0, 1]):.5f}", flush=True)
+    check(clear.sum() >= 1, f"no window clear by {need:.3f}")
+    check(bool(agree[clear].all()), "int8 and float32 verdicts differ on clear windows")
+
+    # windows/s against the bf16 default route on the same features, in turns
+    ens16 = with_dtype(load_merged_torch(shared_path).to("cuda"), torch.bfloat16)
+    batch = x[:BATCH]
+    routes = {
+        "int8": lambda: quantized.quantized_ensemble_forward(q, batch),
+        "bf16": lambda: _aggregate(ensemble_per_head_logits(
+            ens16, batch, fast_backbone=True, conv3x3_max_channels=512)),
+    }
+    wps = {"int8": [], "bf16": []}
+    for route in ("int8", "bf16", "bf16", "int8"):
+        wps[route].append(BATCH / median_ms(routes[route], n=10) * 1e3)
+    print(f"[int8] backbone and heads on 128 features at 512², median of 10 (CUDA events): "
+          f"int8 {' / '.join(f'{v:.1f}' for v in wps['int8'])} windows/s, bf16 default route "
+          f"{' / '.join(f'{v:.1f}' for v in wps['bf16'])} windows/s; {per_batch:.0f} _int_mm "
+          f"launches a batch; quantized in {quant_s:.2f} s | {smi}", flush=True)
+    return {"int_mm_per_batch": per_batch, "card_vs_cpu_max_abs": card_vs_cpu,
+            "clear_05": int(clear05.sum()), "agree_05": int(agree[clear05].sum()),
+            "err_calibration": err_cal, "margin": need, "clear": int(clear.sum()),
+            "agree": int(agree[clear].sum()), "agree_all": int(agree.sum()),
+            "windows_per_s": wps, "quantize_s": quant_s}
+
+
 def main() -> int:
     import torch
 
@@ -3274,10 +3599,21 @@ def main() -> int:
         data = drive_data(zero_counts, counts, {"k1": k1.name, "conv": conv.name}, work)
         data["phase_s"] = time.perf_counter() - t0
         print(f"[data] phase took {data['phase_s']:.1f} s | {smi}", flush=True)
+
+        # 15. torch.distributed on one card
+        t0 = time.perf_counter()
+        parallel = drive_parallel(zero_counts, counts, {"k1": k1.name, "conv": conv.name}, work,
+                                  paths["shared"], windows, smi)
+        print(f"[parallel] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+        # 16. the int8 backbone
+        t0 = time.perf_counter()
+        int8 = drive_int8(paths["shared"], windows, l_f32, p32, smi)
+        print(f"[int8] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 15. report
+    # 17. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -3288,13 +3624,15 @@ def main() -> int:
         "launches": (sum(c[k1.name] for c in cli_launches.values()) + train["k1_launches"]
                      + sum(t["launches"][k1.name] for t in trunk.values())
                      + ensemble["k1_launches"] + daemon["k1_launches"]
-                     + release["k1_launches"] + data["k1_launches"]),
+                     + release["k1_launches"] + data["k1_launches"]
+                     + parallel["k1_launches"]),
         "serving_launches": sum(c[k1.name] for c in cli_launches.values()),
         "train_launches": train["k1_launches"],
         "ensemble_launches": ensemble["k1_launches"],
         "daemon_launches": daemon["k1_launches"],
         "release_launches": release["k1_launches"],
         "data_launches": data["k1_launches"],
+        "parallel_launches": parallel["k1_launches"],
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -3354,7 +3692,7 @@ def main() -> int:
     }]
     conv_launches = (path_launches[conv.name] + ensemble["conv_launches"]
                      + daemon["conv_launches"] + release["conv_launches"]
-                     + data["conv_launches"])
+                     + data["conv_launches"] + parallel["conv_launches"])
     tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5·max(1, √(K / 576)) for sums of K products "
            "(one bf16 ulp, and the sums' order near 0), bf16 out with ReLU on and off, and "
            "float32 out")
@@ -3371,6 +3709,7 @@ def main() -> int:
         "daemon_launches": daemon["conv_launches"],
         "release_launches": release["conv_launches"],
         "data_launches": data["conv_launches"],
+        "parallel_launches": parallel["conv_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "tol": tol,
         "per": f"the {CONV_LAUNCHES_PER_BATCH} conv-kernel launches of one 128-window batch "
@@ -3445,7 +3784,7 @@ def main() -> int:
                                    "joint_cli": ensemble["joint"], "add_head_cli": ensemble[
                                        "add_head"], "serving": ensemble["serving"]},
                       "daemon": daemon, "legacy": legacy, "release": release,
-                      "data": data}))
+                      "data": data, "parallel": parallel, "int8": int8}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ Writes ``joint_model.ckpt`` (the resume state) and its merged ensemble,
 ``joint_model.ckpt.merged.ckpt`` (native) and ``.merged.pth`` (the
 reference's merged format), both inputs of ``cli/inference_runner.py``.
 ``--device`` picks the torch device (default ``cuda``); ``--device cuda``
-without a usable GPU is an error, never a CPU run.
+without a usable GPU is an error, never a CPU run. Under torchrun it
+trains data-parallel, as cli/submodel_trainer.py does.
 
 Usage:
     python -m synthetic_audio_detection_tpu_torch.cli.ensemble_trainer \\
@@ -18,7 +19,12 @@ from __future__ import annotations
 import argparse
 import sys
 
-from synthetic_audio_detection_tpu_torch.cli.submodel_trainer import BACKBONES, setup_logging
+from synthetic_audio_detection_tpu_torch.cli.submodel_trainer import (
+    BACKBONES,
+    join_group,
+    rank,
+    setup_logging,
+)
 from synthetic_audio_detection_tpu_torch.utils.config import (
     add_wave_augment_args,
     parse_input_size,
@@ -71,7 +77,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    setup_logging()
+    joined = join_group(args.device)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
+    setup_logging(rank())
 
     from synthetic_audio_detection_tpu_torch.train.joint import JointTrainer
     from synthetic_audio_detection_tpu_torch.utils.config import (
@@ -109,7 +126,8 @@ def main(argv=None) -> int:
         device=args.device,
     )
     best = trainer.fit()
-    print(f"Best ensemble validation accuracy: {best:.4f}")
+    if rank() == 0:
+        print(f"Best ensemble validation accuracy: {best:.4f}")
     return 0
 
 

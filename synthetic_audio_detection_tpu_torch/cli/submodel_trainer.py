@@ -10,6 +10,11 @@ stage 1 works around the TPU's conv emitter).
 Usage:
     python -m synthetic_audio_detection_tpu_torch.cli.submodel_trainer \\
         --data-dir ./dataset --Class0 Real --Class1 SynthA --epochs 30 --bf16
+
+Data-parallel over N cards (train/trainer.py): the same command under
+torchrun, one process a card, which joins the group from torchrun's
+variables (NCCL; gloo with ``--device cpu``); only rank 0 logs and writes:
+    torchrun --nproc-per-node N -m synthetic_audio_detection_tpu_torch.cli.submodel_trainer ...
 """
 
 from __future__ import annotations
@@ -88,13 +93,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def setup_logging() -> None:
-    """File and console logging (logs/train_<ts>.log, as the reference)."""
+def setup_logging(rank: int = 0) -> None:
+    """File and console logging (logs/train_<ts>.log, as the reference); a
+    rank other than 0 logs warnings to the console only."""
+    if rank:
+        logging.basicConfig(level=logging.WARNING,
+                            format=f"%(asctime)s rank {rank} %(levelname)s %(message)s")
+        return
     os.makedirs("logs", exist_ok=True)
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s",
         handlers=[logging.FileHandler(os.path.join("logs", f"train_{int(time.time())}.log")),
                   logging.StreamHandler()])
+
+
+def join_group(device: str) -> bool:
+    """Join torchrun's group when this process is one of several (NCCL, or
+    gloo for ``--device cpu``); → whether this call joined it (and the
+    caller leaves it at the end)."""
+    import torch.distributed as dist
+
+    from synthetic_audio_detection_tpu_torch.parallel.sharding import initialize_distributed
+
+    was = dist.is_initialized()
+    initialize_distributed(backend="gloo" if device == "cpu" else "nccl")
+    return dist.is_initialized() and not was
+
+
+def rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def main(argv=None) -> int:
@@ -103,7 +132,18 @@ def main(argv=None) -> int:
     if args.s2d_layer1:
         parser.error("--s2d-layer1 is not ported: the space-to-depth stage 1 works around "
                      "the TPU conv emitter and has no GPU counterpart")
-    setup_logging()
+    joined = join_group(args.device)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
+    setup_logging(rank())
 
     from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
     from synthetic_audio_detection_tpu_torch.utils.config import (
@@ -139,7 +179,8 @@ def main(argv=None) -> int:
         trainer.evaluate()
         return 0
     best = trainer.fit()
-    print(f"Best validation accuracy: {best:.4f}")
+    if rank() == 0:
+        print(f"Best validation accuracy: {best:.4f}")
     return 0
 
 

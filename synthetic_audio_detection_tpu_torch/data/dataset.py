@@ -20,6 +20,14 @@ its biggest inefficiency):
 
 Host work is only file IO + resample; a double-buffered thread pool keeps the
 card fed. ``data/grain_pipeline.py`` is the worker-process alternative.
+
+Under a data-parallel mesh each rank asks for a row window [start, stop)
+of every batch (``WaveformBatcher.epoch(rows=...)``, ``window_batch``): the
+one-process batch order, each file's two rows in place, and only the files
+of those rows decoded. A file that does not load then keeps its two rows
+as zeros weighted 0 (the grain backend's contract) rather than shrinking
+the batch, so every rank's rows stay where they are; with no such file
+the rows are the one-process batch's.
 """
 
 from __future__ import annotations
@@ -111,6 +119,30 @@ def load_two_segments(path: str) -> Optional[np.ndarray]:
     return segs.astype(np.float32)
 
 
+def window_files(n_files: int, start: int, stop: int) -> range:
+    """The files (batch indices) whose two rows meet rows [start, stop)."""
+    return range(start // 2, min(n_files, (stop + 1) // 2))
+
+
+def window_batch(chunk: Sequence[Tuple[str, int]], segs: Dict[int, Optional[np.ndarray]],
+                 start: int, stop: int) -> Dict[str, np.ndarray]:
+    """Rows [start, stop) of the batch of ``chunk``'s files, file f's two
+    segments at rows 2f and 2f + 1: {'audio' [stop − start, T], 'label',
+    'weight'}. ``segs[f]`` ([2, T], or None for a file that did not load:
+    its rows zero, its label kept, weighted 0) for each of
+    ``window_files``; rows past the files zero, label 0, weighted 0."""
+    n = stop - start
+    out = {"audio": np.zeros((n, SEGMENT_SAMPLES), np.float32),
+           "label": np.zeros(n, np.int32), "weight": np.zeros(n, np.float32)}
+    for row in range(start, min(stop, 2 * len(chunk))):
+        f = row // 2
+        out["label"][row - start] = chunk[f][1]
+        if segs[f] is not None:
+            out["audio"][row - start] = segs[f][row % 2]
+            out["weight"][row - start] = 1.0
+    return out
+
+
 @dataclass
 class EpochStats:
     files_seen: int = 0
@@ -160,7 +192,19 @@ class WaveformBatcher:
         audio = np.concatenate(audios, axis=0)  # [2B', T]
         return {"audio": audio, "label": np.asarray(labels, np.int32)}
 
-    def epoch(self, epoch_idx: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def _make_rows(self, chunk: List[Tuple[str, int]], ex, rows: Tuple[int, int]
+                   ) -> Dict[str, np.ndarray]:
+        files = window_files(len(chunk), *rows)
+        segs = dict(zip(files, ex.map(lambda f: load_two_segments(chunk[f][0]), files)))
+        self.stats.files_seen += len(files)
+        self.stats.files_dropped += sum(s is None for s in segs.values())
+        return window_batch(chunk, segs, *rows)
+
+    def epoch(self, epoch_idx: int = 0, rows: Optional[Tuple[int, int]] = None
+              ) -> Iterator[Dict[str, np.ndarray]]:
+        """The epoch's batches; with ``rows`` = (start, stop) each batch's
+        row window (``window_batch``), one for every batch, however many
+        of its files load."""
         order = list(self.samples)
         if self.shuffle:
             random.Random(derive_epoch_seed(self.seed, epoch_idx)).shuffle(order)
@@ -180,7 +224,8 @@ class WaveformBatcher:
             try:
                 with cf.ThreadPoolExecutor(max_workers=self.workers) as ex:
                     for chunk in chunks:
-                        q.put(self._make_batch(chunk, ex))
+                        q.put(self._make_batch(chunk, ex) if rows is None
+                              else self._make_rows(chunk, ex, rows))
             except BaseException as e:  # noqa: BLE001 — relayed to consumer
                 producer_error.append(e)
             finally:

@@ -1,7 +1,7 @@
 """The worker-process input pipeline, behind ``--data-backend grain`` (the
 reference package's ``data/grain_pipeline.py``, which builds it on Grain):
 a ``torch.utils.data.DataLoader`` whose worker processes decode the files,
-so no package beyond PyTorch is needed.
+a batch each, so no package beyond PyTorch is needed.
 
 The epoch's file order is the threads backend's rule
 (``dataset.WaveformBatcher``: ``random.Random(derive_epoch_seed(seed,
@@ -15,43 +15,42 @@ partial batch dropped (fixed shapes without padding).
 from __future__ import annotations
 
 import random
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch.utils.data
 
 from synthetic_audio_detection_tpu_torch.data.dataset import (
-    SEGMENT_SAMPLES,
     derive_epoch_seed,
     load_two_segments,
+    window_batch,
+    window_files,
 )
 
 
-def decode_two_segments(sample: Tuple[str, int]) -> Dict[str, np.ndarray]:
-    """(path, label) → a fixed-shape record of the file's two rows."""
-    path, label = sample
-    segs = load_two_segments(path)
-    if segs is None:
-        return {"audio": np.zeros((2, SEGMENT_SAMPLES), np.float32),
-                "label": np.full(2, label, np.int32), "weight": np.zeros(2, np.float32)}
-    return {"audio": segs, "label": np.full(2, label, np.int32),
-            "weight": np.ones(2, np.float32)}
+class _Batches(torch.utils.data.Dataset):
+    """Batch b of the epoch order: rows [start, stop) of its files'
+    (``dataset.window_batch``; the whole batch by default), decoding only
+    the files of those rows."""
 
-
-def collate(records: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
-    return {k: np.concatenate([r[k] for r in records], axis=0)
-            for k in ("audio", "label", "weight")}
-
-
-class _Files(torch.utils.data.Dataset):
-    def __init__(self, samples: Sequence[Tuple[str, int]]):
-        self.samples = list(samples)
+    def __init__(self, order: Sequence[Tuple[str, int]], batch_size: int,
+                 rows: Optional[Tuple[int, int]] = None):
+        self.order = list(order)
+        self.batch_size = batch_size
+        self.rows = rows or (0, 2 * batch_size)
 
     def __len__(self) -> int:
-        return len(self.samples)
+        return len(self.order) // self.batch_size  # the last partial batch dropped
 
-    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
-        return decode_two_segments(self.samples[i])
+    def __getitem__(self, b: int) -> Dict[str, np.ndarray]:
+        chunk = self.order[b * self.batch_size:(b + 1) * self.batch_size]
+        files = window_files(len(chunk), *self.rows)
+        return window_batch(chunk, {f: load_two_segments(chunk[f][0]) for f in files},
+                            *self.rows)
+
+
+def _as_is(batch):
+    return batch
 
 
 def epoch_order(samples: Sequence[Tuple[str, int]], seed: int, epoch_idx: int,
@@ -63,13 +62,14 @@ def epoch_order(samples: Sequence[Tuple[str, int]], seed: int, epoch_idx: int,
 
 
 def make_loader(samples: Sequence[Tuple[str, int]], batch_size: int, shuffle: bool = True,
-                seed: int = 0, epoch_idx: int = 0, workers: int = 4
-                ) -> Iterator[Dict[str, np.ndarray]]:
-    """The epoch's batches, decoded by ``workers`` processes (0: in this
-    process). The workers fork from a forkserver, not from this process,
-    whose CUDA context and threads a fork would copy."""
+                seed: int = 0, epoch_idx: int = 0, workers: int = 4,
+                rows: Optional[Tuple[int, int]] = None) -> Iterator[Dict[str, np.ndarray]]:
+    """The epoch's batches (with ``rows``: each batch's row window),
+    decoded by ``workers`` processes, a batch each (0: in this process).
+    The workers fork from a forkserver, not from this process, whose CUDA
+    context and threads a fork would copy."""
     workers = max(0, workers)
     return iter(torch.utils.data.DataLoader(
-        _Files(epoch_order(samples, seed, epoch_idx, shuffle)), batch_size=batch_size,
-        shuffle=False, num_workers=workers, collate_fn=collate, drop_last=True,
+        _Batches(epoch_order(samples, seed, epoch_idx, shuffle), batch_size, rows),
+        batch_size=None, num_workers=workers, collate_fn=_as_is,
         multiprocessing_context="forkserver" if workers else None))

@@ -31,6 +31,7 @@ from synthetic_audio_detection_tpu_torch.models.classifier import (
 from synthetic_audio_detection_tpu_torch.models.fast_resnet import FastResNet
 from synthetic_audio_detection_tpu_torch.models.head import BinaryHead
 from synthetic_audio_detection_tpu_torch.models.resnet import ResNet, create_resnet, fold_rgb_conv
+from synthetic_audio_detection_tpu_torch.parallel.sharding import MODEL_AXIS
 
 
 class MultiHeadEnsemble(nn.Module):
@@ -202,6 +203,15 @@ def ensemble_per_head_logits(ens: MultiHeadEnsemble, x: torch.Tensor,
     else:
         pooled = torch.stack([ens.compute_backbone(i)(x).mean(dim=(2, 3)) for i in range(n)])
     return heads_forward(ens.stacked_heads(), pooled)
+
+
+@torch.no_grad()
+def head_parallel_logits(mesh, shard: MultiHeadEnsemble, x: torch.Tensor) -> torch.Tensor:
+    """The head-parallel forward: x [B, C, H, W] → [B, N+1] logits of the
+    whole ensemble from ``shard``, this rank's heads
+    (``parallel.sharding.shard_ensemble_heads``): their per-head logits,
+    one all-gather over ``model``, then ``_aggregate``."""
+    return _aggregate(mesh.all_gather(ensemble_per_head_logits(shard, x), MODEL_AXIS))
 
 
 def _aggregate(logits_nh: torch.Tensor) -> torch.Tensor:

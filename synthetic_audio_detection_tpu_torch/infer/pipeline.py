@@ -27,6 +27,14 @@ the knob has no effect.
 
 The pipeline runs on the GPU unless the caller asks for ``device="cpu"``.
 
+Data-parallel serving (``mesh``, a ``parallel.sharding.Mesh``, as the
+reference's pure data-parallel ``shard_map`` path): each bucket is rounded
+up to a multiple of the ``data`` size, each rank copies and forwards only
+its rows on its own device (the ranks along ``model`` the same rows), and
+one ``all_gather_into_tensor`` over ``data`` per batch returns the whole
+batch's logits (and per-head logits, in the same gather) to every rank.
+The forward itself makes no collective.
+
 ``InferencePipeline.from_artifact`` serves an exported artifact
 (infer/export.py) with the same host side: its device pass is the exported
 program (the float32 GEMM mel and the plain backbone, no hand-written
@@ -61,6 +69,7 @@ from synthetic_audio_detection_tpu_torch.ops import melspec
 from synthetic_audio_detection_tpu_torch.ops.cuda_melspec import dequantize, serving_log_mel
 from synthetic_audio_detection_tpu_torch.ops.filters import gaussian_filter1d
 from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
+from synthetic_audio_detection_tpu_torch.parallel.sharding import pad_batch_to_multiple, shard_batch
 
 
 # ---------------------------------------------------------------------------
@@ -156,8 +165,10 @@ class InferencePipeline:
         device: Any = "cuda",
         transport_dtype: str = "float32",
         conv3x3_max_channels: int = 512,
+        mesh=None,
     ):
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("device cuda requested but CUDA is not available")
@@ -202,6 +213,7 @@ class InferencePipeline:
         program, meta = export.load_artifact(path_or_bytes, device=device)
         sizes = sorted(e["batch_size"] for e in meta["entries"])
         self = cls.__new__(cls)
+        self.mesh = None
         self.device = torch.device(device)
         self.ensemble = export.ArtifactEnsemble(
             class_names=list(meta["class_names"]), calibration=meta.get("calibration") or None,
@@ -273,11 +285,15 @@ class InferencePipeline:
         # once per call, so a long recording's tail pads into the same bucket
         if self._bucket_sizes is not None:  # an artifact: its exported sizes only
             return next((s for s in self._bucket_sizes if n <= s), self._bucket_sizes[-1])
-        return 8 if n <= 8 else self.infer.batch_size
+        bucket = 8 if n <= 8 else self.infer.batch_size
+        if self.mesh is not None:
+            bucket = pad_batch_to_multiple(bucket, self.mesh)
+        return bucket
 
     def _bucketed_batches(self, windows: np.ndarray, quantize: bool = True):
         """Yield (device batch padded to the bucket, rows to keep), with the
-        int16 transport applied unless ``quantize`` is False."""
+        int16 transport applied unless ``quantize`` is False; under a mesh
+        the device batch is this rank's rows of the bucket."""
         num = windows.shape[0]
         bucket = self._bucket(num)
         if quantize and self.transport_dtype == "int16" and windows.dtype != np.int16:
@@ -289,8 +305,24 @@ class InferencePipeline:
             if take < bucket:
                 batch = np.concatenate(
                     [batch, np.zeros((bucket - take, windows.shape[1]), windows.dtype)])
+            if self.mesh is not None:
+                batch = shard_batch(self.mesh, {"w": batch})["w"]
             yield torch.from_numpy(np.ascontiguousarray(batch)).to(self.device), take
             i += take
+
+    def _whole_batch(self, agg: torch.Tensor, nh: Optional[torch.Tensor] = None):
+        """Under a mesh: this rank's rows of the serving logits [R, N+1] (and
+        per-head logits [N, R, 2]) → the whole batch's, by one all-gather
+        over ``data``; otherwise as given."""
+        if self.mesh is None:
+            return agg if nh is None else (agg, nh)
+        r, n = agg.shape[0], self.ensemble.num_heads
+        parts = [agg.float()] if nh is None else [agg.float(),
+                                                  nh.float().transpose(0, 1).reshape(r, 2 * n)]
+        whole = self.mesh.all_gather(torch.cat(parts, dim=1))
+        if nh is None:
+            return whole
+        return whole[:, :n + 1], whole[:, n + 1:].reshape(-1, n, 2).transpose(0, 1)
 
     def logits_for_windows(self, windows: np.ndarray) -> np.ndarray:
         """[num, T] → [num, N+1] float32 logits."""
@@ -298,7 +330,7 @@ class InferencePipeline:
             return np.zeros((0, self.ensemble.num_heads + 1), np.float32)
         out = []
         for batch, take in self._bucketed_batches(windows):
-            out.append(self._forward(batch)[:take].float().cpu().numpy())
+            out.append(self._whole_batch(self._forward(batch))[:take].float().cpu().numpy())
         return np.concatenate(out, axis=0)
 
     # -- diagnostics --------------------------------------------------------
@@ -312,7 +344,7 @@ class InferencePipeline:
         self._refuse_artifact()
         agg_out, nh_out = [], []
         for batch, take in self._bucketed_batches(windows):
-            agg, nh = self._forward(batch, return_per_head=True)
+            agg, nh = self._whole_batch(*self._forward(batch, return_per_head=True))
             agg_out.append(agg[:take].float().cpu().numpy())
             nh_out.append(nh.float().cpu().numpy().transpose(1, 0, 2)[:take])
         return np.concatenate(agg_out, axis=0), np.concatenate(nh_out, axis=0)
@@ -332,8 +364,9 @@ class InferencePipeline:
         out = []
         for batch, take in self._bucketed_batches(windows, quantize=False):
             with exact_float32():
-                _, nh = forward_windows(ens32, batch, self.spec, self.audio.sample_rate,
-                                        return_per_head=True)
+                agg, nh = forward_windows(ens32, batch, self.spec, self.audio.sample_rate,
+                                          return_per_head=True)
+            _, nh = self._whole_batch(agg, nh)
             out.append(nh.cpu().numpy().transpose(1, 0, 2)[:take])
         probs = 1.0 / (1.0 + np.exp(-np.concatenate(out, axis=0)))
         return probs.astype(np.float32)

@@ -45,7 +45,16 @@ class _FlaxStats:
     running statistics 0.9·old + 0.1·batch, with the biased variance
     (``nn.BatchNorm*d`` uses the unbiased one). Eval mode, and ``momentum=None`` (torch's cumulative
     average, for code that estimates statistics the torch way), are
-    PyTorch's own."""
+    PyTorch's own.
+
+    The moments are Σx / n and Σx² / n. With ``mesh`` set (a
+    ``parallel.sharding.Mesh``; ``sync_batch_stats``), Σx, Σx² and n are
+    summed over its ``data`` ranks by one differentiable all-reduce, so
+    the statistics are the global batch's, pad rows included, as flax's
+    under the reference's mesh. One process runs the same arithmetic
+    without the all-reduce."""
+
+    mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.momentum is None:
@@ -53,8 +62,13 @@ class _FlaxStats:
         dims = [0] + list(range(2, x.ndim))
         view = [1, -1] + [1] * (x.ndim - 2)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dims)
-        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+        c = xf.shape[1]
+        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                          xf.new_full((1,), float(xf.numel() // c))])
+        if self.mesh is not None:
+            sums = self.mesh.all_reduce(sums)
+        mean = sums[:c] / sums[2 * c:]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c:] - mean * mean, min=0.0)
         if self.track_running_stats:
             with torch.no_grad():
                 keep = 1.0 - self.momentum
@@ -71,6 +85,14 @@ class FlaxBatchNorm2d(_FlaxStats, nn.BatchNorm2d):
 
 class FlaxBatchNorm1d(_FlaxStats, nn.BatchNorm1d):
     pass
+
+
+def sync_batch_stats(model: nn.Module, mesh) -> None:
+    """Train-mode BatchNorm statistics of ``model`` over ``mesh``'s data
+    ranks (None: this process's batch)."""
+    for m in model.modules():
+        if isinstance(m, _FlaxStats):
+            m.mesh = mesh
 
 
 def _bn(channels: int) -> nn.BatchNorm2d:

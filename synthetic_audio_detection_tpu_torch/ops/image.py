@@ -21,6 +21,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from synthetic_audio_detection_tpu_torch.parallel.sharding import rows_of
+
 _F32_EPS = float(np.finfo(np.float32).eps)
 
 
@@ -71,7 +73,10 @@ def random_resized_crop_apply(images: torch.Tensor, box: Dict[str, torch.Tensor]
 
 def random_resized_crop(generator: Optional[torch.Generator], images: torch.Tensor,
                         scale: Tuple[float, float] = (0.8, 1.0),
-                        ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0)) -> torch.Tensor:
+                        ratio: Tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0),
+                        rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``rows``: as ``waveform_augment.augment_waveforms``'s."""
     b, h, w = images.shape
-    box = random_resized_crop_draw(generator, b, h, w, scale, ratio, images.device)
-    return random_resized_crop_apply(images, box)
+    box = random_resized_crop_draw(generator, rows[1] if rows else b, h, w, scale, ratio,
+                                   images.device)
+    return random_resized_crop_apply(images, rows_of(box, rows, b))

@@ -12,9 +12,11 @@ so the same draws give the same planes in both packages.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from synthetic_audio_detection_tpu_torch.parallel.sharding import rows_of
 
 
 def _axis_draw(generator: Optional[torch.Generator], batch: int, dim: int, param: int,
@@ -49,8 +51,9 @@ def spec_augment_apply(spec: torch.Tensor, draws: Dict[str, Dict[str, torch.Tens
 
 def spec_augment(generator: Optional[torch.Generator], spec: torch.Tensor,
                  freq_mask_param: int = 15, time_mask_param: int = 35,
-                 mask_value: float = 0.0) -> torch.Tensor:
+                 mask_value: float = 0.0, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``rows``: as ``waveform_augment.augment_waveforms``'s."""
     b, m, t = spec.shape
-    draws = spec_augment_draw(generator, b, m, t, freq_mask_param, time_mask_param,
-                              spec.device)
-    return spec_augment_apply(spec, draws, mask_value)
+    draws = spec_augment_draw(generator, rows[1] if rows else b, m, t, freq_mask_param,
+                              time_mask_param, spec.device)
+    return spec_augment_apply(spec, rows_of(draws, rows, b), mask_value)

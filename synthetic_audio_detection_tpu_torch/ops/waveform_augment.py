@@ -12,10 +12,12 @@ the same draws give the same waveforms in both packages.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from synthetic_audio_detection_tpu_torch.parallel.sharding import rows_of
 
 
 def lowpass_kernels(cutoffs_hz: torch.Tensor, taps: int, sample_rate: int) -> torch.Tensor:
@@ -77,6 +79,10 @@ def augment_apply(wav: torch.Tensor, draws: Dict[str, torch.Tensor], cfg,
 
 
 def augment_waveforms(generator: Optional[torch.Generator], wav: torch.Tensor, cfg,
-                      sample_rate: int) -> torch.Tensor:
-    draws = augment_draw(generator, wav.shape[0], wav.shape[1], cfg, wav.device)
-    return augment_apply(wav, draws, cfg, sample_rate)
+                      sample_rate: int, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``rows`` = (first row, global rows): ``wav`` holds those rows of a
+    global batch, whose draws are made and cut to them
+    (``parallel.sharding.rows_of``)."""
+    b = wav.shape[0]
+    draws = augment_draw(generator, rows[1] if rows else b, wav.shape[1], cfg, wav.device)
+    return augment_apply(wav, rows_of(draws, rows, b), cfg, sample_rate)

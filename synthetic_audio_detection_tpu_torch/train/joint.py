@@ -37,7 +37,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,23 +48,28 @@ from torch.profiler import record_function
 from synthetic_audio_detection_tpu_torch.checkpoints import serialization
 from synthetic_audio_detection_tpu_torch.data import dataset as ds
 from synthetic_audio_detection_tpu_torch.ensemble import multihead
-from synthetic_audio_detection_tpu_torch.models.head import BinaryHead, set_dropout_generator
+from synthetic_audio_detection_tpu_torch.models.head import (
+    BinaryHead,
+    set_dropout_generator,
+    skip_dropout_draws,
+)
 from synthetic_audio_detection_tpu_torch.models.init import flax_default_init_
 from synthetic_audio_detection_tpu_torch.models.resnet import (
     RESNET_SPECS,
     ResNet,
     create_resnet,
+    sync_batch_stats,
 )
+from synthetic_audio_detection_tpu_torch.parallel import sharding as sh
 from synthetic_audio_detection_tpu_torch.train import steps
 from synthetic_audio_detection_tpu_torch.train.plateau import PlateauState
-from synthetic_audio_detection_tpu_torch.train.trainer import StepTrainer, resolve_device
+from synthetic_audio_detection_tpu_torch.train.trainer import StepTrainer
 from synthetic_audio_detection_tpu_torch.utils import metrics as metrics_mod
 from synthetic_audio_detection_tpu_torch.utils.config import (
     SpecAugmentConfig,
     SpectrogramConfig,
     TrainConfig,
 )
-from synthetic_audio_detection_tpu_torch.utils.tb_writer import SummaryWriter
 
 log = logging.getLogger(__name__)
 
@@ -96,7 +101,14 @@ class JointModel(nn.Module):
     """``base`` (the shared trunk, stages 1 … n − K) and ``heads`` (N
     ``BinaryHead``s, or N ``TailHead``s with K > 0); x → [N, B, 2] logits.
     Parameter names are ``base.*`` and ``heads.<i>.*``, so the submodel
-    trainer's freeze masks hold every head trainable."""
+    trainer's freeze masks hold every head trainable.
+
+    ``head_range`` (h0, h1, N), set by ``shard_joint_state``: the model
+    holds heads h0 … h1 − 1 of N (its ``heads.<j>`` is head h0 + j) and
+    returns their logits; for each head it does not hold it draws and drops
+    the head's random numbers, so the step's generator moves as with all N."""
+
+    head_range: Optional[Tuple[int, int, int]] = None
 
     def __init__(self, model_name: str, num_heads: int, per_head_stages: int = 0):
         super().__init__()
@@ -117,7 +129,16 @@ class JointModel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         feats = self.base(x)
-        return torch.stack([head(feats) for head in self.heads])
+        if self.head_range is None:
+            return torch.stack([head(feats) for head in self.heads])
+        h0, h1, n = self.head_range
+        out = []
+        for i in range(n):
+            if h0 <= i < h1:
+                out.append(self.heads[i - h0](feats))
+            else:
+                skip_dropout_draws(self.heads[0], feats.shape[0], feats.device)
+        return torch.stack(out)
 
 
 def _child(generator: torch.Generator) -> torch.Generator:
@@ -152,6 +173,34 @@ def joint_freeze_mask(state: steps.TrainState, phase2: bool) -> None:
     """The trunk follows the freeze schedule (layer4, then layer3 too);
     every head is trainable."""
     state.set_phase(steps.PHASE2_PREFIXES if phase2 else steps.PHASE1_PREFIXES)
+
+
+def shard_joint_state(state: steps.TrainState, mesh: sh.Mesh) -> steps.TrainState:
+    """This rank's part of a joint state for a mesh with heads along
+    ``model`` (the layout of the reference's head-parallel step): the
+    trunk whole, heads [h0, h1) (``sharding.head_slice``), their moments
+    and mask entries; the model changed in place. Raises ValueError when
+    the heads do not split over the model axis."""
+    model = state.model
+    n = len(model.heads)
+    h0, h1 = sh.head_slice(mesh, n)
+    model.heads = nn.ModuleList(list(model.heads)[h0:h1])
+    model.head_range = (h0, h1, n)
+    full = {name: i for i, name in enumerate(state.names)}
+    names = [name for name, _ in model.named_parameters()]
+    src = [full[global_head_name(name, h0)] for name in names]
+    return steps.TrainState(
+        model=model, names=names, mu=[state.mu[i] for i in src], nu=[state.nu[i] for i in src],
+        mask=[state.mask[i] for i in src], count=state.count, step=state.step,
+        lr_scale=state.lr_scale, lr=state.lr)
+
+
+def global_head_name(name: str, h0: int) -> str:
+    """``heads.<j>.*`` of a sharded model → ``heads.<h0 + j>.*``."""
+    if not name.startswith("heads."):
+        return name
+    _, j, rest = name.split(".", 2)
+    return f"heads.{int(j) + h0}.{rest}"
 
 
 def load_joint_state_(state: steps.TrainState, variables: Dict[str, Any], count: int,
@@ -204,14 +253,19 @@ def per_head_binary_labels(labels: torch.Tensor, num_heads: int,
 
 
 def joint_loss(logits_nb: torch.Tensor, y_nb: torch.Tensor, weights: Optional[torch.Tensor],
-               w_nb: Optional[torch.Tensor]) -> tuple:
-    """(the mean of the N per-head cross-entropies, the [N] per-head
-    losses); each head's rows weighted by ``w_nb[i]``, or by ``weights``
-    when ``w_nb`` is None (hard negatives)."""
+               w_nb: Optional[torch.Tensor], total_weights: Optional[torch.Tensor] = None,
+               num_heads: Optional[int] = None) -> tuple:
+    """(the mean of the N per-head cross-entropies, the per-head losses);
+    each head's rows weighted by ``w_nb[i]``, or by ``weights`` when
+    ``w_nb`` is None (hard negatives). Under a mesh: ``total_weights``, the
+    global Σw of each head ([1]: of ``weights``), divide instead, and the
+    sum over the heads given is divided by ``num_heads``, all N of them."""
     per_head = torch.stack([
-        steps.cross_entropy(logits_nb[i], y_nb[i], weights if w_nb is None else w_nb[i])
+        steps.cross_entropy(logits_nb[i], y_nb[i], weights if w_nb is None else w_nb[i],
+                            None if total_weights is None else total_weights[
+                                0 if w_nb is None else i])
         for i in range(logits_nb.shape[0])])
-    return per_head.mean(), per_head
+    return per_head.sum() / (num_heads or logits_nb.shape[0]), per_head
 
 
 def make_joint_train_step(
@@ -225,48 +279,110 @@ def make_joint_train_step(
     compute_dtype: torch.dtype = torch.float32,
     hard_negatives: bool = True,
     generic_head: bool = False,
+    mesh: Optional[sh.Mesh] = None,
 ):
     """→ ``joint_step(state, batch, generator) -> metrics``, updating
     ``state`` (a ``JointModel``'s) in place. batch: {'audio': [B, T]
     float32 or int16, 'label': [B] corpus labels 0..N, 'weight': [B]
     (optional)} on the state's device. metrics: 'loss', 'per_head_loss',
-    'per_head_accuracy', 'accuracy', 'skipped', device tensors."""
+    'per_head_accuracy', 'accuracy', 'skipped', device tensors.
+
+    With ``mesh``, the batch is this rank's rows along ``data`` and the
+    step is the one-process step on the global batch, as the submodel
+    step's (``steps.make_train_step``). With a ``model`` axis > 1 the
+    state must hold this rank's heads (``shard_joint_state``): the trunk's
+    and the heads' BatchNorm statistics reduce over ``data`` (the ranks
+    along ``model`` see the same rows), the heads' gradients sum over
+    ``data`` and the trunk's over every rank, the clip's norm adds the
+    heads' squares over ``model``, and the metrics (each rank's heads on
+    its rows) sum over every rank."""
 
     def joint_step(state: steps.TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
         model = state.model
         device = state.count.device
+        h0, h1, _ = model.head_range or (0, num_heads, num_heads)
+        if mesh is not None and mesh.size(sh.MODEL_AXIS) > 1 and model.head_range is None:
+            raise ValueError("a mesh with a model axis needs the state's heads sharded "
+                             "(shard_joint_state)")
         model.train()
         model.set_stop_grad_stage(stop_grad_stage)
-        set_dropout_generator(model, generator)
+        rows = None if mesh is None else mesh.rows(batch["audio"].shape[0])
+        set_dropout_generator(model, generator, rows)
+        sync_batch_stats(model, mesh)
         with steps._precision(torch.float32, device), record_function("train_step.features"):
             x = steps.features_from_waveforms(batch["audio"], spec_cfg, augment, generator,
-                                              sample_rate, dft_mode=dft_mode)
+                                              sample_rate, dft_mode=dft_mode, rows=rows)
         labels = batch["label"]
         weights = batch.get("weight")
-        y_nb = per_head_binary_labels(labels, num_heads, generic_head)
+        y_nb = per_head_binary_labels(labels, num_heads, generic_head)[h0:h1]
         w_nb = None if hard_negatives else per_head_own_mask(labels, num_heads, weights,
-                                                             generic_head)
+                                                             generic_head)[h0:h1]
+        dens = None
+        if mesh is not None:
+            if weights is None:
+                weights = torch.ones(labels.shape, device=device)
+            dens = mesh.all_reduce(weights.float().sum()[None] if w_nb is None
+                                   else w_nb.sum(1))
         buffers, saved = steps.save_buffers(model)
         params = state.params
         with steps._precision(compute_dtype, device), record_function("train_step.forward"):
             logits_nb = model(x)
-            loss, per_head = joint_loss(logits_nb, y_nb, weights, w_nb)
+            loss, per_head = joint_loss(logits_nb, y_nb, weights, w_nb, dens, num_heads)
         grads = steps.gradients(loss, params, compute_dtype)
-        with record_function("train_step.optimizer"):
-            ok = steps.apply_update_(state, grads, loss, cfg, buffers, saved)
+        norm_fn = None
+        if mesh is not None:
+            live = [i for i, m in enumerate(state.mask) if m]
+            if model.head_range is None:
+                grads = steps.sync_gradients(grads, live, mesh)
+            else:
+                is_head = [n.startswith("heads.") for n in state.names]
+                grads = steps.sync_gradients(grads, [i for i in live if not is_head[i]], mesh,
+                                             axis=None)
+                grads = steps.sync_gradients(grads, [i for i in live if is_head[i]], mesh)
+                norm_fn = _head_parallel_norm(mesh, is_head)
         correct = (torch.argmax(logits_nb, -1) == y_nb).float()
         if w_nb is not None:
-            acc = (correct * w_nb).sum(1) / torch.clamp(w_nb.sum(1), min=1.0)
+            acc = (correct * w_nb).sum(1) / torch.clamp(w_nb.sum(1) if dens is None else dens,
+                                                        min=1.0)
         elif weights is not None:
             w = weights.float()
-            acc = (correct * w[None, :]).sum(1) / torch.clamp(w.sum(), min=1.0)
+            acc = (correct * w[None, :]).sum(1) / torch.clamp(w.sum() if dens is None else dens,
+                                                              min=1.0)
         else:
             acc = correct.mean(1)
+        if mesh is not None:
+            # each rank's heads on its rows, placed among all N and summed
+            # over every rank: the global per-head loss and accuracy
+            both = torch.zeros((2, num_heads), device=device)
+            both[0, h0:h1] = per_head.detach()
+            both[1, h0:h1] = acc
+            per_head, acc = mesh.all_reduce(both.reshape(-1), axis=None).view(2, num_heads)
+            loss = per_head.sum() / num_heads
+        with record_function("train_step.optimizer"):
+            ok = steps.apply_update_(state, grads, loss, cfg, buffers, saved, norm_fn=norm_fn)
         return {"loss": loss.detach(), "per_head_loss": per_head.detach(),
                 "per_head_accuracy": acc, "accuracy": acc.mean(), "skipped": (~ok).float()}
 
     return joint_step
+
+
+def _head_parallel_norm(mesh: sh.Mesh, is_head: List[bool]):
+    """The clip's global norm when each rank holds its heads: the trunk's
+    squares (the same on every rank) plus the heads' summed over
+    ``model``."""
+
+    def norm(live: List[int], g: List[torch.Tensor]) -> torch.Tensor:
+        def squares(ts):
+            if not ts:
+                return torch.zeros((), device=g[0].device)
+            return torch.stack(torch._foreach_norm(ts)).square().sum()
+
+        trunk = squares([t for i, t in zip(live, g) if not is_head[i]])
+        heads = squares([t for i, t in zip(live, g) if is_head[i]])
+        return torch.sqrt(trunk + mesh.all_reduce(heads[None], sh.MODEL_AXIS)[0])
+
+    return norm
 
 
 def make_joint_eval_step(
@@ -342,8 +458,9 @@ class JointTrainer(StepTrainer):
     Runs on ``cuda`` unless ``device="cpu"`` (the default raises without a
     GPU). As the submodel trainer, ``--bf16`` on the card selects the
     log-mel kernel (here in the train and the eval step) and the int16
-    transport. ``use_mesh`` is accepted; on one device there is no mesh, as
-    in the reference."""
+    transport. ``use_mesh`` and ``mesh``: the submodel trainer's
+    data-parallel training (train/trainer.py), heads on every rank, as the
+    reference's trainer lays them out."""
 
     def __init__(
         self,
@@ -359,10 +476,11 @@ class JointTrainer(StepTrainer):
         hard_negatives: bool = True,
         generic_head: bool = False,
         device: str = "cuda",
+        mesh: Optional[sh.Mesh] = None,
     ):
         if not synthetic_classes:
             raise ValueError("need at least one synthetic class")
-        self.device = resolve_device(device)
+        self._init_mesh(device, use_mesh, mesh)
         self.per_head_stages = per_head_stages
         self.hard_negatives = hard_negatives
         self.generic_head = generic_head
@@ -381,6 +499,8 @@ class JointTrainer(StepTrainer):
         self.state = init_joint_state(model_name, self.num_heads,
                                       torch.Generator().manual_seed(cfg.seed), cfg,
                                       per_head_stages, self.device)
+        if self.mesh is not None:
+            sh.replicate(self.mesh, self.state.model)
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         self.plateau = PlateauState(cfg.plateau_factor, cfg.plateau_patience)
         self.best_acc = 0.0
@@ -395,7 +515,8 @@ class JointTrainer(StepTrainer):
         self._eval_step = make_joint_eval_step(
             self.spec_cfg, self.num_heads, dft_mode=self._dft, compute_dtype=self.compute_dtype,
             hard_negatives=hard_negatives, generic_head=generic_head)
-        self.writer = SummaryWriter(log_dir or os.path.join("runs", f"joint_{int(time.time())}"))
+        self.writer = self._make_writer(
+            log_dir or os.path.join("runs", f"joint_{int(time.time())}"))
         if cfg.resume:
             self.resume(cfg.resume)
 
@@ -410,7 +531,7 @@ class JointTrainer(StepTrainer):
         return make_joint_train_step(
             self.cfg, self.spec_cfg, self.augment, self.num_heads, stop_grad_stage=stage,
             dft_mode=self._dft, compute_dtype=self.compute_dtype,
-            hard_negatives=self.hard_negatives, generic_head=self.generic_head)
+            hard_negatives=self.hard_negatives, generic_head=self.generic_head, mesh=self.mesh)
 
     def _unfreeze(self) -> None:
         joint_freeze_mask(self.state, phase2=True)
@@ -517,7 +638,7 @@ class JointTrainer(StepTrainer):
         loss_sum = np.zeros(self.num_heads)
         confusion = np.zeros((self.num_heads, 2, 2))
         count = ens_correct = 0.0
-        scores, is_syn = [], []
+        scored = []
         for batch in self._batches(batcher, epoch, target_rows):
             stats = self._eval_step(self.model, batch)
             self.eval_steps_run += 1
@@ -525,9 +646,12 @@ class JointTrainer(StepTrainer):
             confusion += stats["confusion"].double().cpu().numpy()
             count += float(stats["count"])
             ens_correct += float(stats["ens_correct"])
-            valid = batch["weight"].cpu().numpy() > 0
-            scores.append(stats["det_score"].float().cpu().numpy()[valid])
-            is_syn.append(batch["label"].cpu().numpy()[valid] != 0)
+            scored.append(np.stack([stats["det_score"].float().cpu().numpy(),
+                                    batch["label"].cpu().numpy() != 0,
+                                    batch["weight"].cpu().numpy()], axis=1))
+        loss_sum, confusion, count, ens_correct = self._sum_over_ranks(
+            loss_sum, confusion, count, ens_correct)
+        rows = self._valid_rows(scored)
         res = JointEpochResult()
         # each head over its own rows (all of them with hard negatives)
         head_counts = confusion.sum(axis=(1, 2))
@@ -536,8 +660,8 @@ class JointTrainer(StepTrainer):
                             for h in range(self.num_heads)]
         res.ensemble_acc = ens_correct / max(count, 1.0)
         res.confusion = confusion
-        if scores:
-            s, y = np.concatenate(scores), np.concatenate(is_syn)
+        if rows.size:
+            s, y = rows[:, 0].astype(np.float32), rows[:, 1] > 0
             if 0 < y.sum() < y.size:
                 res.val_auc = metrics_mod.roc_auc(s, y)
                 res.val_eer = metrics_mod.equal_error_rate(s, y)[0]
@@ -580,7 +704,7 @@ class JointTrainer(StepTrainer):
             if res.ensemble_acc > self.best_acc:  # strict, as the reference
                 self.best_acc = res.ensemble_acc
                 path = os.path.join(cfg.checkpoint_dir, "joint_model.ckpt")
-                self.save_checkpoint(epoch, path)
+                self._saved(lambda: self.save_checkpoint(epoch, path))
                 log.info("saved best joint checkpoint (ensemble acc %.4f) -> %s",
                          self.best_acc, path)
         return self.best_acc

@@ -44,10 +44,12 @@ from torch.profiler import record_function
 
 from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
 from synthetic_audio_detection_tpu_torch.models.head import set_dropout_generator
+from synthetic_audio_detection_tpu_torch.models.resnet import sync_batch_stats
 from synthetic_audio_detection_tpu_torch.ops import image as image_ops
 from synthetic_audio_detection_tpu_torch.ops import masking, melspec, waveform_augment
 from synthetic_audio_detection_tpu_torch.ops.cuda_melspec import fused_log_mel_factored
 from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
+from synthetic_audio_detection_tpu_torch.parallel.sharding import DATA_AXIS
 from synthetic_audio_detection_tpu_torch.utils.config import (
     SpecAugmentConfig,
     SpectrogramConfig,
@@ -144,16 +146,20 @@ def bn_buffers(model: torch.nn.Module) -> List[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  weights: Optional[torch.Tensor] = None,
+                  total_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean negative log-likelihood over the rows weighted 1 (the zero rows
-    that pad a batch to its fixed size carry weight 0)."""
+    that pad a batch to its fixed size carry weight 0). ``total_weight``
+    (the global batch's Σw, under a mesh) divides in place of these rows'
+    Σw, so the ranks' losses sum to the global batch's."""
     dtype = torch.promote_types(logits.dtype, torch.float32)
     logp = F.log_softmax(logits.to(dtype), dim=-1)
     nll = -logp.gather(1, labels[:, None].long())[:, 0]
     if weights is None:
         return nll.mean()
     w = weights.to(dtype)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    den = w.sum() if total_weight is None else total_weight.to(dtype)
+    return (nll * w).sum() / torch.clamp(den, min=1.0)
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor,
@@ -166,10 +172,13 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
     return (correct * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> None:
     """optax's rule over all the tensors, in place: unchanged when ‖g‖ <
-    max, else (g / ‖g‖)·max, with ‖g‖ the norm of them all."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    max, else (g / ‖g‖)·max, with ‖g‖ the norm of them all (``norm``, when
+    the caller computes it: a head-parallel step's spans ranks)."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     clip = norm >= max_norm
     torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
     torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))
@@ -216,6 +225,7 @@ def features_from_waveforms(
     generator: Optional[torch.Generator],
     sample_rate: int,
     dft_mode: Optional[str] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """[B, T] float32 or int16 → [B, 3, H, W] model input. In order: int16
     dequantisation, the waveform augmentation (train, when enabled), the
@@ -225,14 +235,16 @@ def features_from_waveforms(
     mel by ``dft_mode``, 'gemm' by default), SpecAugment (train),
     standardize, and the crop (train) after the resize, or before the
     native zero-pad in native mode. Train mode, as in the reference: an
-    enabled ``augment`` and a ``generator``."""
+    enabled ``augment`` and a ``generator``. ``rows`` = (first row, global
+    rows): ``waveforms`` are those rows of a global batch, and every random
+    draw is the global batch's, cut to them."""
     train_mode = augment is not None and augment.enabled and generator is not None
     wave_aug = train_mode and augment.wave_enabled
     if waveforms.dtype == torch.int16 and (wave_aug or dft_mode != "pallas"):
         waveforms = waveforms.float() / 32768.0
     if wave_aug:
         waveforms = waveform_augment.augment_waveforms(generator, waveforms, augment,
-                                                       sample_rate)
+                                                       sample_rate, rows)
     if dft_mode == "pallas":
         db = fused_log_mel_factored(waveforms, spec_cfg, sample_rate, standardize=False)
     else:
@@ -241,16 +253,16 @@ def features_from_waveforms(
         db = melspec.amplitude_to_db(mel, spec_cfg.top_db)
     if train_mode:
         db = masking.spec_augment(generator, db, augment.freq_mask_param,
-                                  augment.time_mask_param)
+                                  augment.time_mask_param, rows=rows)
     z = melspec.standardize(db, spec_cfg.eps)
     if spec_cfg.is_native:
         if train_mode:
-            z = image_ops.random_resized_crop(generator, z, scale=(0.8, 1.0))
+            z = image_ops.random_resized_crop(generator, z, scale=(0.8, 1.0), rows=rows)
         z = melspec.finalize_features(z, spec_cfg)
     else:
         z = melspec.finalize_features(z, spec_cfg)
         if train_mode:
-            z = image_ops.random_resized_crop(generator, z, scale=(0.8, 1.0))
+            z = image_ops.random_resized_crop(generator, z, scale=(0.8, 1.0), rows=rows)
     x = melspec.replicate_channels(z, spec_cfg.out_channels)
     if x.device.type == "cuda":
         x = x.contiguous(memory_format=torch.channels_last)
@@ -278,10 +290,28 @@ def gradients(loss: torch.Tensor, params: List[torch.Tensor],
         return torch.autograd.grad(loss, params, allow_unused=True)
 
 
+def sync_gradients(grads, indices: List[int], mesh, axis: Optional[str] = DATA_AXIS) -> list:
+    """The gradients at ``indices`` summed over the ranks along ``axis``
+    (None: every rank) by one all-reduce of them flattened together; a
+    None (a parameter out of the graph, on every rank alike) stays None."""
+    grads = list(grads)
+    idx = [i for i in indices if grads[i] is not None]
+    if not idx:
+        return grads
+    flat = mesh.all_reduce(torch.cat([grads[i].reshape(-1) for i in idx]), axis)
+    offset = 0
+    for i in idx:
+        n = grads[i].numel()
+        grads[i] = flat[offset:offset + n].view_as(grads[i])
+        offset += n
+    return grads
+
+
 @torch.no_grad()
 def apply_update_(state: TrainState, grads, loss: torch.Tensor, cfg: TrainConfig,
                   buffers: List[torch.Tensor], saved: List[torch.Tensor],
-                  mask: Optional[List[float]] = None) -> torch.Tensor:
+                  mask: Optional[List[float]] = None,
+                  norm_fn: Optional[Callable] = None) -> torch.Tensor:
     """The optimizer half of a step, in place: the gradients masked to the
     trainable parameters (``mask``, default ``state.mask``; a parameter that
     is trainable but not in the graph takes a zero gradient, so AdamW still
@@ -289,7 +319,10 @@ def apply_update_(state: TrainState, grads, loss: torch.Tensor, cfg: TrainConfig
     the plateau's lr, the frozen moments decayed, and the NaN-skip: where
     ``loss`` is not finite, parameters, moments, count and the BN
     ``buffers`` (put back from ``saved``) keep their values. The step
-    counter always advances. → ``ok``, the device flag."""
+    counter always advances. Under a mesh ``grads`` are the summed ones
+    and ``loss`` the global batch's, so every rank takes the same update;
+    ``norm_fn(live indices, gradients)`` gives the clip's global norm when
+    the ranks hold different parameters. → ``ok``, the device flag."""
     mask = state.mask if mask is None else mask
     params = state.params
     # a frozen parameter's masked gradient is zero: it keeps its value
@@ -301,7 +334,7 @@ def apply_update_(state: TrainState, grads, loss: torch.Tensor, cfg: TrainConfig
          else torch.zeros_like(params[i], dtype=torch.float32) for i in live]
     for t in g:  # a skipped step's update is zero (a NaN cannot be scaled away)
         t.masked_fill_(~ok, 0.0)
-    clip_by_global_norm_(g, cfg.grad_clip_norm)
+    clip_by_global_norm_(g, cfg.grad_clip_norm, None if norm_fn is None else norm_fn(live, g))
     lr = state.lr_scale * cfg.lr  # float32, no host-to-device copy
     state.count = adamw_update_(g, [params[i] for i in live], [state.mu[i] for i in live],
                                 [state.nu[i] for i in live], state.count, lr,
@@ -334,6 +367,7 @@ def make_train_step(
     stop_grad_stage: int = 0,
     dft_mode: Optional[str] = None,
     compute_dtype: torch.dtype = torch.float32,
+    mesh=None,
 ) -> Callable:
     """→ ``train_step(state, batch, generator) -> metrics``, which updates
     ``state`` in place. batch: {'audio': [B, T] float32 or int16, 'label':
@@ -345,7 +379,17 @@ def make_train_step(
     the head not in the loss and not updated. ``stop_grad_stage`` > 0 runs
     the backbone before that stage without autograd (4 in phase 1, 3 after
     layer3 unfreezes): the same updates as the masked step, with no
-    backward pass through the frozen stages."""
+    backward pass through the frozen stages.
+
+    With ``mesh`` (a ``parallel.sharding.Mesh``) the batch is this rank's
+    rows along ``data`` of a global batch split evenly, and the step is the
+    one-process step on the global batch: every random draw the global
+    batch's, cut to these rows; BatchNorm statistics over the global batch
+    (``models.resnet.sync_batch_stats``); the loss Σ w·nll over these rows
+    divided by the global max(Σw, 1), so the ranks' losses sum to the
+    global loss; the gradients summed over the ranks by one all-reduce; the
+    metrics (loss, accuracy) by one more. Every rank then applies the same
+    update and keeps the same parameters, moments and count."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
@@ -353,12 +397,19 @@ def make_train_step(
         device = state.count.device
         model.train()
         model.base.stop_grad_stage = stop_grad_stage
-        set_dropout_generator(model, generator)
+        rows = None if mesh is None else mesh.rows(batch["audio"].shape[0])
+        set_dropout_generator(model, generator, rows)
+        sync_batch_stats(model, mesh)
         with _precision(torch.float32, device), record_function("train_step.features"):
             x = features_from_waveforms(batch["audio"], spec_cfg, augment, generator,
-                                        sample_rate, dft_mode=dft_mode)
+                                        sample_rate, dft_mode=dft_mode, rows=rows)
         labels = batch["label"]
         weights = batch.get("weight")
+        total_w = None
+        if mesh is not None:
+            if weights is None:
+                weights = torch.ones(labels.shape, device=device)
+            total_w = mesh.all_reduce(weights.float().sum()[None])[0]
         buffers, saved = save_buffers(model)
         params = state.params
         with _precision(compute_dtype, device), record_function("train_step.forward"):
@@ -366,17 +417,23 @@ def make_train_step(
                 out = model.base(x).mean(dim=(2, 3))  # pooled features AS the logits
             else:
                 out = model(x)
-            loss = cross_entropy(out, labels, weights)
+            loss = cross_entropy(out, labels, weights, total_w)
         grads = gradients(loss, params, compute_dtype)
         mask = state.mask
         if reference_quirk_loss:
             # only the backbone is in the graph: the head gets no update
             quirk = freeze_mask(state.names, ("base",))
             mask = [m * quirk[n] for m, n in zip(mask, state.names)]
+        if mesh is None:
+            acc = accuracy(out, labels, weights)
+        else:
+            grads = sync_gradients(grads, [i for i, m in enumerate(mask) if m], mesh)
+            correct = ((torch.argmax(out, -1) == labels).float() * weights.float()).sum()
+            both = mesh.all_reduce(torch.stack([loss.detach(), correct]))
+            loss, acc = both[0], both[1] / torch.clamp(total_w, min=1.0)
         with record_function("train_step.optimizer"):
             ok = apply_update_(state, grads, loss, cfg, buffers, saved, mask)
-        return {"loss": loss.detach(), "accuracy": accuracy(out, labels, weights),
-                "skipped": (~ok).float()}
+        return {"loss": loss.detach(), "accuracy": acc, "skipped": (~ok).float()}
 
     return train_step
 

@@ -10,6 +10,17 @@ checkpointer of ``checkpoint_backend="orbax"``, and the ``.pth`` twin),
 resume from either with ``start_epoch = saved epoch + 1``, and the
 ``--evaluate`` pass with its confusion matrix.
 
+Data-parallel training (``use_mesh``, as the reference's: a mesh over
+``data`` when the process is in a group of more than one rank, or the
+``mesh`` given): every rank walks the one-process batch order with the
+same seed, decodes only its rows of each batch (padded to a multiple of
+the data size; ``data/dataset.py``), and runs the data-parallel step
+(``train/steps.py``), so all ranks keep the same state. Validation sums
+the confusion counts over the ranks and gathers the scores for the AUC,
+so every rank (and its plateau) sees the global result. Only rank 0
+writes checkpoints, TensorBoard scalars and logs, with a barrier after
+each save; a resume reads on every rank.
+
 The trainer runs on ``cuda`` unless the caller passes ``device="cpu"``;
 without a GPU the default raises. On the card, ``--bf16`` makes the
 reference's choices for an accelerator: the log-mel kernel in the train
@@ -26,10 +37,11 @@ import logging
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from synthetic_audio_detection_tpu_torch.audio import wavio
 from synthetic_audio_detection_tpu_torch.checkpoints import serialization, torch_compat
@@ -37,6 +49,7 @@ from synthetic_audio_detection_tpu_torch.checkpoints.orbax_io import OrbaxCheckp
 from synthetic_audio_detection_tpu_torch.data import dataset as ds
 from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
 from synthetic_audio_detection_tpu_torch.models.init import flax_default_init_
+from synthetic_audio_detection_tpu_torch.parallel import sharding as sh
 from synthetic_audio_detection_tpu_torch.train import steps
 from synthetic_audio_detection_tpu_torch.train.plateau import PlateauState
 from synthetic_audio_detection_tpu_torch.utils import metrics as metrics_mod
@@ -48,6 +61,16 @@ from synthetic_audio_detection_tpu_torch.utils.config import (
 from synthetic_audio_detection_tpu_torch.utils.tb_writer import SummaryWriter
 
 log = logging.getLogger(__name__)
+
+
+class _NoWriter:
+    """The TensorBoard writer of a rank other than 0."""
+
+    def add_scalar(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class _GrainBatcher:
@@ -64,11 +87,12 @@ class _GrainBatcher:
     def __len__(self):
         return len(self.samples) // self.batch_size
 
-    def epoch(self, epoch_idx: int = 0):
+    def epoch(self, epoch_idx: int = 0, rows: Optional[Tuple[int, int]] = None):
         from synthetic_audio_detection_tpu_torch.data.grain_pipeline import make_loader
 
         yield from make_loader(self.samples, self.batch_size, shuffle=self.shuffle,
-                               seed=self.seed, epoch_idx=epoch_idx, workers=self.workers)
+                               seed=self.seed, epoch_idx=epoch_idx, workers=self.workers,
+                               rows=rows)
 
 
 @dataclass
@@ -93,13 +117,15 @@ def resolve_device(device: str) -> torch.device:
 
 
 def device_batches(batcher, epoch: int, target_rows: int, transport: str,
-                   device: torch.device) -> Iterator[Dict[str, torch.Tensor]]:
+                   device: torch.device, rows: Optional[Tuple[int, int]] = None
+                   ) -> Iterator[Dict[str, torch.Tensor]]:
     """One epoch of ``batcher`` on ``device``: each batch padded to
-    ``target_rows`` with zero audio weighted 0 (a grain batch comes padded,
-    with its weights), its audio as int16 PCM under the int16 transport,
-    through pinned memory on the card."""
+    ``target_rows`` with zero audio weighted 0 (a grain batch, or a row
+    window ``rows`` of each batch, comes padded, with its weights), its
+    audio as int16 PCM under the int16 transport, through pinned memory on
+    the card."""
     pin = device.type == "cuda"
-    for batch in batcher.epoch(epoch):
+    for batch in batcher.epoch(epoch, rows=rows):
         if "weight" in batch:  # grain backend: fixed-shape batches with weights
             padded = batch
         else:
@@ -117,13 +143,64 @@ def device_batches(batcher, epoch: int, target_rows: int, transport: str,
 
 
 class StepTrainer:
-    """What the trainers share: the batch feed, the plateau's lr scale on
-    the device, and the train pass. A subclass sets ``cfg``, ``device``,
-    ``state``, ``generator``, ``writer``, ``plateau``, ``_transport``,
-    ``_train_step`` and ``train_steps_run``."""
+    """What the trainers share: the mesh, the batch feed, the plateau's lr
+    scale on the device, the train pass and the sums over ranks. A
+    subclass calls ``_init_mesh`` and sets ``cfg``, ``state``,
+    ``generator``, ``writer`` (``_make_writer``), ``plateau``,
+    ``_transport``, ``_train_step`` and ``train_steps_run``."""
+
+    def _init_mesh(self, device: str, use_mesh: bool, mesh: Optional[sh.Mesh]) -> None:
+        """``mesh``: the one given, else a data mesh over every rank when
+        ``use_mesh`` and the group has more than one (the reference's
+        rule); the trainer's device is the mesh's."""
+        if mesh is None and use_mesh and sh.world_size() > 1:
+            mesh = sh.create_mesh()
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        self.is_writer = mesh is None or torch.distributed.get_rank() == 0
+
+    def _make_writer(self, log_dir: str):
+        return SummaryWriter(log_dir) if self.is_writer else _NoWriter()
 
     def _batches(self, batcher, epoch: int, target_rows: int) -> Iterator[Dict[str, torch.Tensor]]:
-        return device_batches(batcher, epoch, target_rows, self._transport, self.device)
+        rows = None
+        if self.mesh is not None:  # this rank's rows of each batch, padded to a multiple
+            local = sh.pad_batch_to_multiple(target_rows, self.mesh) // self.mesh.size(sh.DATA_AXIS)
+            start, _ = self.mesh.rows(local)
+            rows = (start, start + local)
+        return device_batches(batcher, epoch, target_rows, self._transport, self.device, rows)
+
+    def _saved(self, save) -> None:
+        """``save()`` on rank 0, then every rank waits for it."""
+        if self.is_writer:
+            save()
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _sum_over_ranks(self, *values):
+        """Host numbers or arrays summed over the data ranks (as given
+        without a mesh), by one all-reduce in float64."""
+        if self.mesh is None:
+            return values
+        flat = [np.asarray(v, np.float64).ravel() for v in values]
+        total = self.mesh.all_reduce(torch.from_numpy(np.concatenate(flat)).to(self.device))
+        total = total.cpu().numpy()
+        out, offset = [], 0
+        for v, f in zip(values, flat):
+            out.append(total[offset:offset + f.size].reshape(np.shape(v)))
+            offset += f.size
+        return [o if np.ndim(v) else float(o) for o, v in zip(out, values)]
+
+    def _valid_rows(self, per_batch: List[np.ndarray]) -> np.ndarray:
+        """Per batch [R, k] rows whose last column is the weight → the rows
+        weighted above 0 of the global batches, in the one-process order
+        (under a mesh: gathered over the data ranks by one all-gather)."""
+        rows = np.concatenate(per_batch) if per_batch else np.zeros((0, 1))
+        if self.mesh is not None and per_batch:
+            d, nb, r = self.mesh.size(sh.DATA_AXIS), len(per_batch), per_batch[0].shape[0]
+            got = self.mesh.all_gather(torch.from_numpy(rows).to(self.device)).cpu().numpy()
+            rows = got.reshape(d, nb, r, -1).transpose(1, 0, 2, 3).reshape(nb * d * r, -1)
+        return rows[rows[:, -1] > 0]
 
     def _set_plateau(self, plateau: PlateauState) -> None:
         self.plateau = plateau
@@ -172,13 +249,15 @@ class Trainer(StepTrainer):
         class_names: Optional[List[str]] = None,
         reference_quirk_loss: bool = False,
         device: str = "cuda",
+        use_mesh: bool = True,
+        mesh: Optional[sh.Mesh] = None,
     ):
         if cfg.s2d_stage1:
             raise ValueError("the space-to-depth stage 1 is not ported")
         if cfg.checkpoint_backend not in ("native", "orbax"):
             raise ValueError(f"unknown checkpoint backend {cfg.checkpoint_backend!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self._init_mesh(device, use_mesh, mesh)
         self.spec_cfg = spec_cfg or SpectrogramConfig.train()
         self.augment = augment or SpecAugmentConfig()
         self.class_names = list(class_names) if class_names else [cfg.class0, cfg.class1]
@@ -191,6 +270,8 @@ class Trainer(StepTrainer):
         model = model.to(self.device)
         if on_card:
             model = model.to(memory_format=torch.channels_last)
+        if self.mesh is not None:
+            sh.replicate(self.mesh, model)
         self.state = steps.create_train_state(model, cfg)
         self.generator = torch.Generator(self.device).manual_seed(cfg.seed)
         self.plateau = PlateauState(cfg.plateau_factor, cfg.plateau_patience)
@@ -208,7 +289,7 @@ class Trainer(StepTrainer):
         self._reference_quirk_loss = reference_quirk_loss
         self._train_step = self._build_train_step()
         self._eval_step = steps.make_eval_step(self.spec_cfg, compute_dtype=self.compute_dtype)
-        self.writer = SummaryWriter(
+        self.writer = self._make_writer(
             log_dir or os.path.join("runs", f"experiment_{int(time.time())}"))
         if cfg.resume:
             self.resume(cfg.resume)
@@ -226,7 +307,7 @@ class Trainer(StepTrainer):
         return steps.make_train_step(
             self.cfg, self.spec_cfg, self.augment,
             reference_quirk_loss=self._reference_quirk_loss, stop_grad_stage=stage,
-            dft_mode=self._dft, compute_dtype=self.compute_dtype)
+            dft_mode=self._dft, compute_dtype=self.compute_dtype, mesh=self.mesh)
 
     def _unfreeze(self) -> None:
         steps.unfreeze_layer3(self.state)
@@ -350,26 +431,26 @@ class Trainer(StepTrainer):
         n_cls = len(self.class_names)
         confusion = np.zeros((n_cls, n_cls), np.float64)
         count = 0.0
-        scores: list = []
-        is_syn: list = []
+        scored = []
         for batch in self._batches(batcher, epoch, target_rows):
             stats = self._eval_step(self.model, batch)
             self.eval_steps_run += 1
             loss_sum += float(stats["loss_sum"])
             confusion += stats["confusion"].double().cpu().numpy()
             count += float(stats["count"])
-            # any-synthetic score = 1 - P(Real)
-            valid = batch["weight"].cpu().numpy() > 0
-            probs = stats["probs"].float().cpu().numpy()[valid]
-            scores.append(1.0 - probs[:, 0])
-            is_syn.append(batch["label"].cpu().numpy()[valid] != 0)
+            # any-synthetic score = 1 - P(Real), is-synthetic, weight
+            scored.append(np.stack([1.0 - stats["probs"][:, 0].float().cpu().numpy(),
+                                    batch["label"].cpu().numpy() != 0,
+                                    batch["weight"].cpu().numpy()], axis=1))
+        loss_sum, confusion, count = self._sum_over_ranks(loss_sum, confusion, count)
+        rows = self._valid_rows(scored)
         result = EpochResult()
         result.val_loss = loss_sum / max(count, 1.0)
         result.val_acc = float(np.trace(confusion) / max(count, 1.0))
         result.report = metrics_mod.report_from_confusion(confusion, self.class_names)
         result.confusion = confusion
-        if scores:
-            s, y = np.concatenate(scores), np.concatenate(is_syn)
+        if rows.size:
+            s, y = rows[:, 0].astype(np.float32), rows[:, 1] > 0
             if 0 < y.sum() < y.size:  # ROC needs both sides present
                 result.val_auc = metrics_mod.roc_auc(s, y)
                 result.val_eer = metrics_mod.equal_error_rate(s, y)[0]
@@ -421,7 +502,7 @@ class Trainer(StepTrainer):
             if result.val_acc > self.best_acc:
                 self.best_acc = result.val_acc
                 path = os.path.join(cfg.checkpoint_dir, "best_model.ckpt")
-                self.save_checkpoint(epoch, path)
+                self._saved(lambda: self.save_checkpoint(epoch, path))
                 log.info("saved best checkpoint (acc %.4f) -> %s", self.best_acc, path)
         if self.checkpointer is not None:
             self.checkpointer.wait()

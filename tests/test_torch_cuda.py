@@ -984,3 +984,124 @@ def test_step_checkpointer_copies_cuda_tensors_before_returning(tmp_path, monkey
     tree, _ = ck.restore(1)
     np.testing.assert_array_equal(tree["w"], want)
     np.testing.assert_array_equal(tree["m"][0], want * 2)
+
+
+# ---------------------------------------------------------------------------
+# torch.distributed on one card (an NCCL group of world size 1) and int8
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_one_rank(tmp_path):
+    """An NCCL group of world size 1 through a file store, left at the
+    end."""
+    _cuda_or_skip()
+    import torch.distributed as dist
+
+    from synthetic_audio_detection_tpu_torch.parallel import sharding
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'init'}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", 0))
+    try:
+        yield sharding.create_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_world_size_one_train_step_is_bit_equal(nccl_one_rank, tmp_path):
+    """The data-parallel Trainer's step in an NCCL group of one rank and
+    the plain Trainer's, from one seed, 3 bf16 steps on the same batches:
+    parameters, BN statistics, moments and count bit for bit; K1 once a
+    step; only all-reduces, the same count each step."""
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+    from synthetic_audio_detection_tpu_torch.utils.config import TrainConfig
+
+    mesh = nccl_one_rank
+    cfg = TrainConfig(batch_size=4, compute_dtype="bfloat16", class1="SynA")
+    spec = SpectrogramConfig(mel_norm=None, out_size=128)
+    plain, dp = (Trainer(cfg, spec_cfg=spec, log_dir=str(tmp_path / name), device="cuda",
+                         use_mesh=False, mesh=m) for name, m in (("p", None), ("d", mesh)))
+    assert plain.mesh is None and dp.mesh is mesh
+    batches = []
+    for seed in range(3):
+        b = _train_batch(8, 128_000, "cuda", seed=seed)
+        b["audio"] = torch.round(b["audio"] * 32768).to(torch.int16)
+        batches.append(b)
+    for b in batches:
+        plain._train_step(plain.state, b, plain.generator)
+    per_step = []
+    before = cuda_melspec.KERNEL.launches
+    for b in batches:
+        mesh.counts.clear()
+        dp._train_step(dp.state, b, dp.generator)
+        per_step.append(dict(mesh.counts))
+    torch.cuda.synchronize()
+    assert cuda_melspec.KERNEL.launches == before + 3
+    assert per_step[0] == per_step[1] == per_step[2] and set(per_step[0]) == {"all_reduce"}
+    a, b = plain.model.state_dict(), dp.model.state_dict()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert int(plain.state.count) == int(dp.state.count) == 3
+    for x, y in zip(plain.state.mu + plain.state.nu, dp.state.mu + dp.state.nu):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_nccl_world_size_one_pipeline_is_bit_equal(nccl_one_rank):
+    """InferencePipeline(mesh=...) in an NCCL group of one rank against the
+    pipeline without one (bf16, the shared backbone on the conv kernel):
+    logits and per-head logits bit for bit, one all-gather a batch."""
+    mesh = nccl_one_rank
+    sds = []
+    for seed in range(2):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            sds.append(BinaryClassifier().state_dict())
+    sds = [{**{k: v for k, v in sds[0].items() if k.startswith("base.")},
+            **{k: v for k, v in sd.items() if k.startswith("head.")}} for sd in sds]
+    ens = build_ensemble(sds, ["SynA", "SynB", "Real"])
+    kw = dict(spec=SpectrogramConfig(mel_norm="slaney", out_size=128),
+              infer=InferenceConfig(batch_size=16), compute_dtype=torch.bfloat16, device="cuda")
+    plain, meshed = InferencePipeline(ens, **kw), InferencePipeline(ens, mesh=mesh, **kw)
+    assert meshed.use_fast_backbone and meshed.device == torch.device("cuda", 0)
+    windows = (np.random.default_rng(3).standard_normal((21, 32_000)) * 0.3).astype(np.float32)
+    mesh.counts.clear()
+    got, got_nh = meshed.logits_and_per_head(windows)
+    assert mesh.counts == {"all_gather": 2}
+    want, want_nh = plain.logits_and_per_head(windows)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_nh, want_nh)
+
+
+@pytest.mark.cuda
+def test_int8_forward_on_the_card_matches_the_cpu():
+    """The int8 ensemble on the card (cuBLASLt's int8 products) against the
+    CPU's (exact int32 products) on the same weights and 128² input: the
+    stem's accumulators bit for bit, the logits within 1e-4 (the heads'
+    float32 sums in another order), the same argmax; 20 products a pass."""
+    _cuda_or_skip()
+    from synthetic_audio_detection_tpu_torch.models import quantized
+
+    sds = []
+    for seed in range(3):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            sds.append(BinaryClassifier().state_dict())
+    sds = [{**{k: v for k, v in sds[0].items() if k.startswith("base.")},
+            **{k: v for k, v in sd.items() if k.startswith("head.")}} for sd in sds]
+    ens = build_ensemble(sds, ["SynA", "SynB", "SynC", "Real"])
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((8, 3, 128, 128))
+                         .astype(np.float32))
+    q_cpu = quantized.quantize_ensemble(ens, device="cpu")
+    q_gpu = quantized.quantize_ensemble(ens, device="cuda")
+    nhwc = x.permute(0, 2, 3, 1)
+    acc_cpu, s_cpu = quantized.qconv_accumulators(nhwc, q_cpu.qbackbone["stem"], 2)
+    acc_gpu, s_gpu = quantized.qconv_accumulators(nhwc.cuda(), q_gpu.qbackbone["stem"], 2)
+    assert float(s_cpu) == float(s_gpu)
+    assert torch.equal(acc_gpu.cpu(), acc_cpu)
+    before = quantized.INT_MM.launches
+    got = quantized.quantized_ensemble_forward(q_gpu, x.cuda()).cpu().numpy()
+    assert quantized.INT_MM.launches == before + 20
+    want = quantized.quantized_ensemble_forward(q_cpu, x).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))

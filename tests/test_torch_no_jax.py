@@ -312,3 +312,27 @@ def test_etl_modules_import_without_torch(tmp_path):
     res = _run(code, tmp_path)
     assert res.returncode == 0, res.stderr
     assert "TORCH []" in res.stdout, res.stdout
+
+
+def test_parallel_and_int8_paths_run_without_importing_jax(tmp_path):
+    """The mesh helpers, the dryrun module and the int8 backbone import, and
+    the int8 forward runs on the CPU, in an interpreter whose path holds
+    only the repository, loading nothing of JAX or the JAX package."""
+    code = f"""
+        import sys, torch
+        from synthetic_audio_detection_tpu_torch.ensemble.multihead import build_ensemble
+        from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
+        from synthetic_audio_detection_tpu_torch.models import quantized
+        from synthetic_audio_detection_tpu_torch.parallel import dryrun, sharding
+        torch.manual_seed(0)
+        torch.set_num_threads(2)
+        sd = BinaryClassifier().state_dict()
+        q = quantized.quantize_ensemble(build_ensemble([sd, sd], ["A", "B", "Real"]), device="cpu")
+        out = quantized.quantized_ensemble_forward(q, torch.randn(2, 3, 64, 64))
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in {FORBIDDEN + (REFERENCE,)!r})
+        print("SHAPE", tuple(out.shape), dryrun._mesh_layout(8), "LOADED", loaded)
+    """
+    res = _run(code, tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert "SHAPE (2, 3) (4, 2) LOADED []" in res.stdout, res.stdout
