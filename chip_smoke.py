@@ -244,15 +244,41 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            such a lead on 128 held-out windows of another clip (at least
            one); windows/s of the int8 backbone and heads against the bf16
            default route on the same features, in turns.
-17. report the train step's, the trunk runs', the ensemble, daemon, legacy,
-           release, data, parallel and int8 phases' numbers, one JSON line
-           of kernels, the nvidia-smi line, and last {"ok": true, "device":
-           {...}}.
+17. campaigns the study-campaign drivers (tools/campaign and the seven
+           ports of the repository's tools/*.sh) on phase 14's prepared tree
+           (Real, SynthA, SynthB) at the drivers' defaults (native input,
+           bf16, batch 128) but EPOCHS=1, every step a fresh process on the
+           card: the drivers' step interpreter is swapped for CHILD, which
+           runs the step's main(argv) with the kernels' counts zeroed and
+           appends the step, its exit code, seconds and launches to a JSON
+           file. train_study_ensemble with HARD_NEG=1 (two heads, recipe.csv,
+           merged dense, studied), with JOINT=1 PER_HEAD_STAGES=1 and with
+           JOINT=1 (K = 0); generalization_study holding out SynthA (a
+           one-head joint ensemble on SynthB; the full and unseen studies,
+           the symlinked unseen tree, the summary row);
+           logo_calibration_followup on it; round5_addhead_study growing
+           SynthA back; round4_campaign's A/B of the LOGO artifact, then
+           round5_phase2 on it (carve_eval_split, the CAL-fitted A/B, the
+           synthesized train-fit cache and the offline A/B); round 4's
+           native profile (tools/profile_serving --input-size native
+           --mono). Checks: every driver and step exits 0 (campaign.log's
+           rc=0 lines); K1 launched in every trainer, study, calibration and
+           A/B step that touches the card; the conv kernel a positive
+           multiple of 19 in the serving steps of the shared-backbone
+           artifacts (K = 0, LOGO, calibrated, grown) and none on the dense
+           and K = 1 ones; every study's per_class finite; the recipe, class
+           orders, symlinks and tables. Prints each step's seconds and
+           launches and the phase's seconds.
+18. report the train step's, the trunk runs', the ensemble, daemon, legacy,
+           release, data, parallel, int8 and campaign phases' numbers, one
+           JSON line of kernels, the nvidia-smi line, and last {"ok": true,
+           "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
 import io
 import json
 import os
@@ -2434,7 +2460,7 @@ def drive_release(zero_counts, counts, names, work, paths, clip20, windows, smi,
     nbytes = os.path.getsize(art)
     bound = meta["weights_nbytes"] + meta["constants_nbytes"]
     t0 = time.perf_counter()
-    pipe = InferencePipeline.from_artifact(art, device=device)
+    pipe = InferencePipeline.from_artifact(art)
     load_s = time.perf_counter() - t0
     print(f"[release] export (--bf16 {bf16}, {size}², int16, entries 8 and {BATCH}): "
           f"{export_s:.2f} s; {nbytes} bytes = {nbytes / bound:.4f} × (weights "
@@ -2510,7 +2536,7 @@ def drive_release(zero_counts, counts, names, work, paths, clip20, windows, smi,
     f32t = InferencePipeline.from_artifact(export.export_serving(
         load_merged(cal_pth), spec=SpectrogramConfig.inference(size), batch_sizes=(8, BATCH),
         transport_dtype="float32", compute_dtype=torch.bfloat16 if bf16 else torch.float32,
-        device=device), device=device)
+        device=device))
     wps = {"artifact": [], "artifact, float32 transport": [], "live": []}
     for label, p in (("artifact", pipe), ("artifact, float32 transport", f32t), ("live", live),
                      ("live", live), ("artifact, float32 transport", f32t),
@@ -3322,6 +3348,282 @@ def drive_int8(shared_path, windows, l32, p32, smi):
             "windows_per_s": wps, "quantize_s": quant_s}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the study campaigns
+# ---------------------------------------------------------------------------
+
+# A campaign step's interpreter in phase 17 (the drivers' campaign.INTERPRETER):
+# the step's module main(argv) in a fresh process as the step's own command
+# would run it, every kernel's launch count zeroed first; then one JSON line
+# (the step, its exit code, main()'s seconds, the launches) appended to the
+# file named by the first argument, and main()'s exit code.
+CHILD = r"""
+import importlib, importlib.util, json, sys, time
+out, args = sys.argv[1], sys.argv[2:]
+if args[0] == "-m":
+    name, argv = args[1], args[2:]
+    mod = importlib.import_module(name)
+else:
+    name, argv = args[0], args[1:]
+    spec = importlib.util.spec_from_file_location("campaign_step", name)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+kernels = []
+if name.startswith("synthetic_audio_detection_tpu_torch."):
+    from synthetic_audio_detection_tpu_torch.ops import (
+        cuda_conv, cuda_melspec, cuda_melspec_strip, cuda_probes)
+    kernels = [cuda_melspec.KERNEL, cuda_melspec_strip.KERNEL, cuda_conv.KERNEL,
+               cuda_probes.KERNEL]
+for k in kernels:
+    k.launches = 0
+t0 = time.perf_counter()
+try:
+    rc = mod.main(argv)
+except SystemExit as e:
+    rc = e.code
+except Exception:
+    import traceback
+    traceback.print_exc()
+    rc = 1
+rc = rc if isinstance(rc, int) else int(rc is not None)
+seconds = time.perf_counter() - t0
+sys.stdout.flush()
+with open(out, "a") as f:
+    step = name.rsplit("/", 1)[-1].removesuffix(".py").rsplit(".", 1)[-1]
+    f.write(json.dumps({"step": step, "argv": argv, "rc": rc, "seconds": seconds,
+                        "launches": {k.name: k.launches for k in kernels}}) + "\n")
+sys.exit(rc)
+"""
+
+
+@contextlib.contextmanager
+def output_to(path):
+    """File descriptors 1 and 2 (this process's and its children's) into
+    ``path`` while open."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = os.dup(1), os.dup(2)
+    try:
+        with open(path, "ab") as f:
+            os.dup2(f.fileno(), 1)
+            os.dup2(f.fileno(), 2)
+            yield
+    finally:
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os.dup2(saved[0], 1)
+        os.dup2(saved[1], 2)
+        os.close(saved[0])
+        os.close(saved[1])
+
+
+def per_class_finite(path, classes):
+    """A study JSON's per_class: a finite binary rate for each of
+    ``classes``. → the per_class dict."""
+    with open(path) as f:
+        pc = json.load(f)["per_class"]
+    check(sorted(pc) == sorted(classes)
+          and all(np.isfinite(v["binary"]) and np.isfinite(v["attribution"])
+                  for v in pc.values()), f"{path}: per_class {pc}")
+    return pc
+
+
+def drive_campaigns(names, work, smi):
+    """Phase 17: the seven campaign drivers' steps on phase 14's prepared
+    tree (Real, SynthA, SynthB), each step a fresh process on the card
+    through CHILD. → report fields."""
+    from synthetic_audio_detection_tpu_torch.checkpoints import serialization
+    from synthetic_audio_detection_tpu_torch.tools import (
+        campaign,
+        generalization_study,
+        logo_calibration_followup,
+        round4_campaign,
+        round5_addhead_study,
+        round5_phase2,
+        train_study_ensemble,
+    )
+
+    root = os.path.join(work, "data_prep")
+    classes = campaign.classes(os.path.join(root, "dataset", "test"))
+    check(classes == ["SynthA", "SynthB"], f"phase 14's classes {classes}")
+    steps_path = os.path.join(work, "campaign_steps.jsonl")
+    out_path = os.path.join(work, "campaign_output.log")
+    runs, steps = {}, []
+    c4 = round4_campaign.open_campaign(root)
+
+    def drive(label, fn, *args, **kw):
+        """One driver call with its steps' output in out_path; → its steps."""
+        start = len(steps)
+        t0 = time.perf_counter()
+        with output_to(out_path):
+            rc = fn(*args, **kw)
+        seconds = time.perf_counter() - t0
+        if os.path.exists(steps_path):
+            with open(steps_path) as f:
+                steps[:] = [json.loads(line) for line in f]
+        mine = steps[start:]
+        runs[label] = {"rc": rc, "seconds": seconds, "steps": mine}
+        print(f"[campaigns] {label}: exit {rc} in {seconds:.1f} s; steps (main() seconds, "
+              f"launches K1/conv): " + ", ".join(
+                  f"{s['step']} {s['seconds']:.1f} s "
+                  f"{s['launches'].get(names['k1'], '-')}/{s['launches'].get(names['conv'], '-')}"
+                  for s in mine), flush=True)
+        if rc != 0 or any(s["rc"] != 0 for s in mine):
+            logs = [out_path] + sorted(glob.glob(os.path.join(root, "campaign_logs", "*.log")))
+            for path in logs:
+                with open(path, errors="replace") as f:
+                    print(f"--- {path}\n{f.read()[-4000:]}", file=sys.stderr)
+        check(rc == 0 and all(s["rc"] == 0 for s in mine), f"{label}: exit {rc}, steps "
+                                                         f"{[(s['step'], s['rc']) for s in mine]}")
+        return mine
+
+    def kernels_of(step, serving, conv_layout):
+        """K1 in every trainer and serving step; the conv kernel a positive
+        multiple of 19 on a shared backbone, none otherwise; nothing else."""
+        n = step["launches"]
+        k1, conv = n[names["k1"]], n[names["conv"]]
+        check(k1 > 0, f"{step['step']} {step['argv'][:4]}: no K1 launch")
+        want_conv = serving and conv_layout
+        check((conv > 0 and conv % CONV_LAUNCHES_PER_BATCH == 0) if want_conv else conv == 0,
+              f"{step['step']} {step['argv'][:4]}: {conv} conv launches")
+        check(sum(n.values()) == k1 + conv, f"{step['step']}: launches {n}")
+
+    interpreter = campaign.INTERPRETER
+    campaign.INTERPRETER = [sys.executable, "-c", CHILD, steps_path]
+    cwd = os.getcwd()
+    os.chdir(work)  # the trainers write their logs/ where they run
+    t_phase = time.perf_counter()
+    try:
+        # 1. one head per class with hard negatives, merged (dense), studied
+        seq = drive("train_study_ensemble HARD_NEG=1", train_study_ensemble.run, root,
+                    epochs="1", hard_neg=True)
+        e = os.path.join(root, "ensemble")
+        with open(os.path.join(e, "recipe.csv")) as f:
+            check(f.read() == "model_filename,synthetic_class,real_class\n"
+                  "heads/SynthA/best_model.ckpt,SynthA,Real\n"
+                  "heads/SynthB/best_model.ckpt,SynthB,Real\n", "recipe.csv")
+        check([s["step"] for s in seq] == ["submodel_trainer", "submodel_trainer", "model_merger",
+                                           "accuracy_study"], f"steps {seq}")
+        for s in seq[:2]:
+            check(s["argv"][s["argv"].index("--hard-negative-classes") + 1]
+                  == ({"SynthA", "SynthB"} - {s["argv"][s["argv"].index("--Class1") + 1]}).pop(),
+                  f"hard negatives of {s['argv']}")
+            kernels_of(s, False, False)
+        studies = {}
+        ens = serialization.load_merged(os.path.join(e, "merged.pth"))
+        check(ens.class_names == ["SynthA", "SynthB", "Real"] and not ens.shared_backbone
+              and ens.trunk is None, f"merged heads {ens.class_names}")
+        kernels_of(seq[3], True, False)
+        studies["dense"] = per_class_finite(os.path.join(e, "study.json"), ["Real", *classes])
+
+        # 2. the joint ensembles: trunk-shared (K = 1) and shared backbone (K = 0)
+        for k, conv_layout in (("1", False), ("0", True)):
+            out = os.path.join(root, f"ensemble_k{k}")
+            kw = {"per_head_stages": "1"} if k == "1" else {}
+            joint = drive(f"train_study_ensemble JOINT=1 PER_HEAD_STAGES={k}",
+                          train_study_ensemble.run, root, epochs="1", joint=True, out=out, **kw)
+            check([s["step"] for s in joint] == ["ensemble_trainer", "accuracy_study"],
+                  f"steps {joint}")
+            ens = serialization.load_merged(os.path.join(out, "merged.pth"))
+            check(ens.class_names == ["SynthA", "SynthB", "Real"]
+                  and ens.shared_backbone == conv_layout
+                  and ens.shared_trunk_stages == int(k),
+                  f"K = {k} artifact: shared {ens.shared_backbone}, "
+                  f"trunk {ens.shared_trunk_stages}")
+            kernels_of(joint[0], False, False)
+            kernels_of(joint[1], True, conv_layout)
+            studies[f"joint_k{k}"] = per_class_finite(os.path.join(out, "study.json"),
+                                                      ["Real", *classes])
+
+        # 3. LOGO: SynthA held out, a one-head joint ensemble on SynthB
+        logo = drive("generalization_study SynthA", generalization_study.run, root, ["SynthA"],
+                     epochs="1")
+        check([s["step"] for s in logo] == ["ensemble_trainer", "accuracy_study",
+                                            "accuracy_study"], f"steps {logo}")
+        check(logo[0]["argv"][logo[0]["argv"].index("--synthetic-classes") + 1:][:2]
+              == ["SynthB", "--epochs"], f"LOGO trainer {logo[0]['argv']}")
+        kernels_of(logo[0], False, False)
+        for s in logo[1:]:
+            kernels_of(s, True, True)
+        full = per_class_finite(os.path.join(root, "logo_SynthA_full.json"), ["Real", *classes])
+        per_class_finite(os.path.join(root, "logo_SynthA_unseen.json"), ["Real", "SynthA"])
+        ev = os.path.join(root, "logo_SynthA_eval")
+        check(sorted(os.listdir(ev)) == ["Real", "SynthA"]
+              and os.readlink(os.path.join(ev, "SynthA"))
+              == os.path.join(root, "dataset", "test", "SynthA"), "the unseen tree's links")
+        table = generalization_study.summary_table(root, "", ["SynthA"])
+        with open(os.path.join(root, "logo_SynthA_unseen.json")) as f:
+            unseen = json.load(f)
+        row = (f"| SynthA | {full['SynthA']['binary']:.3f} | {full['SynthB']['binary']:.3f} | "
+               f"{full['Real']['binary']:.3f} | {unseen['binary_auc']:.3f} | "
+               f"{unseen['binary_eer']:.3f} |")
+        check(table.splitlines()[2] == row, f"LOGO table {table!r}")
+
+        # 4. its calibration follow-up
+        cal = drive("logo_calibration_followup SynthA", logo_calibration_followup.run, root, "",
+                    ["SynthA"])
+        check([s["step"] for s in cal] == ["calibrate_ensemble", "accuracy_study"],
+              f"steps {cal}")
+        for s in cal:
+            kernels_of(s, True, True)
+        cal_table = logo_calibration_followup.summary_table(root, "", ["SynthA"])
+        per_class_finite(os.path.join(root, "logo_SynthA_cal_full.json"), ["Real", *classes])
+
+        # 5. SynthA grown back onto its LOGO artifact
+        grow = drive("round5_addhead_study SynthA", round5_addhead_study.run, root, cls="SynthA")
+        check([s["step"] for s in grow] == ["add_head", "accuracy_study"], f"steps {grow}")
+        kernels_of(grow[0], False, False)
+        kernels_of(grow[1], True, True)
+        grown = serialization.load_merged(os.path.join(root, "logo_SynthA_plusA.ckpt"))
+        check(grown.class_names == ["SynthB", "SynthA", "Real"], f"grown {grown.class_names}")
+        per_class_finite(os.path.join(root, "logo_SynthA_plusA_full.json"), ["Real", *classes])
+
+        # 6. round 4's A/B of the LOGO artifact, then round 5's calibration split
+        ab = drive("round4_campaign ab_arm SynthA", round4_campaign.ab_arm, c4, "SynthA")
+        check([s["step"] for s in ab] == ["decision_ab"], f"steps {ab}")
+        kernels_of(ab[0], True, True)
+        phase2 = drive("round5_phase2 SynthA", round5_phase2.run, root, cls="SynthA")
+        check([s["step"] for s in phase2] == ["carve_eval_split", "decision_ab", "decision_ab"],
+              f"steps {phase2}")
+        kernels_of(phase2[1], True, True)
+        check("--from-logits" in phase2[2]["argv"] and not any(phase2[2]["launches"].values()),
+              "the offline A/B launched a kernel")
+        with np.load(os.path.join(root, "calsplit_trainfit.synth.npz")) as z, \
+                np.load(os.path.join(root, "logo_SynthA_decision_ab.json.logits.npz")) as old:
+            check(np.array_equal(z["fit_logits"], old["fit_logits"]), "the synthesized cache")
+
+        # 7. round 4's native profile with the mono stem
+        prof = drive("round4_campaign stage_decomp_native", round4_campaign.stage_decomp_native,
+                     c4)
+        kernels_of(prof[0], True, True)
+        with open(os.path.join(c4.log, "stage_decomp_native.log")) as f:
+            profile_lines = [line for line in f if "ms per 128-window batch" in line]
+        check(len(profile_lines) == 2 and all("native (mono stem)" in line
+                                              for line in profile_lines),
+              f"profile lines {profile_lines}")
+    finally:
+        os.chdir(cwd)
+        campaign.INTERPRETER = interpreter
+    phase_s = time.perf_counter() - t_phase
+    with open(c4.campaign_log) as f:
+        logged = [line for line in f if " rc=" in line]
+    check(len(logged) == 2 and all(" rc=0 " in line for line in logged), f"campaign.log {logged}")
+    print(f"[campaigns] LOGO table:\n{table.rstrip()}\n[campaigns] calibration follow-up:\n"
+          f"{cal_table.rstrip()}", flush=True)
+    for line in profile_lines:
+        print(f"[campaigns] {line.strip()}")
+    launches = {n: sum(s["launches"].get(n, 0) for s in steps) for n in names.values()}
+    print(f"[campaigns] {len(steps)} steps in {phase_s:.1f} s, launches {launches} | {smi}",
+          flush=True)
+    return {"phase_s": phase_s, "k1_launches": launches[names["k1"]],
+            "conv_launches": launches[names["conv"]],
+            "runs": {label: {"seconds": r["seconds"],
+                             "steps": [(s["step"], s["seconds"], s["launches"])
+                                       for s in r["steps"]]}
+                     for label, r in runs.items()},
+            "studies": studies, "logo_table": table, "calibration_table": cal_table}
+
+
 def main() -> int:
     import torch
 
@@ -3610,10 +3912,14 @@ def main() -> int:
         t0 = time.perf_counter()
         int8 = drive_int8(paths["shared"], windows, l_f32, p32, smi)
         print(f"[int8] phase took {time.perf_counter() - t0:.1f} s | {smi}", flush=True)
+
+        # 17. the study campaigns on phase 14's prepared tree
+        campaigns = drive_campaigns({"k1": k1.name, "conv": conv.name}, work, smi)
+        print(f"[campaigns] phase took {campaigns['phase_s']:.1f} s | {smi}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 17. report
+    # 18. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -3625,7 +3931,7 @@ def main() -> int:
                      + sum(t["launches"][k1.name] for t in trunk.values())
                      + ensemble["k1_launches"] + daemon["k1_launches"]
                      + release["k1_launches"] + data["k1_launches"]
-                     + parallel["k1_launches"]),
+                     + parallel["k1_launches"] + campaigns["k1_launches"]),
         "serving_launches": sum(c[k1.name] for c in cli_launches.values()),
         "train_launches": train["k1_launches"],
         "ensemble_launches": ensemble["k1_launches"],
@@ -3633,6 +3939,7 @@ def main() -> int:
         "release_launches": release["k1_launches"],
         "data_launches": data["k1_launches"],
         "parallel_launches": parallel["k1_launches"],
+        "campaign_launches": campaigns["k1_launches"],
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -3692,7 +3999,8 @@ def main() -> int:
     }]
     conv_launches = (path_launches[conv.name] + ensemble["conv_launches"]
                      + daemon["conv_launches"] + release["conv_launches"]
-                     + data["conv_launches"] + parallel["conv_launches"])
+                     + data["conv_launches"] + parallel["conv_launches"]
+                     + campaigns["conv_launches"])
     tol = ("|kernel − plain| ≤ 2^-7·|plain| + 1e-5·max(1, √(K / 576)) for sums of K products "
            "(one bf16 ulp, and the sums' order near 0), bf16 out with ReLU on and off, and "
            "float32 out")
@@ -3710,6 +4018,7 @@ def main() -> int:
         "release_launches": release["conv_launches"],
         "data_launches": data["conv_launches"],
         "parallel_launches": parallel["conv_launches"],
+        "campaign_launches": campaigns["conv_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in conv_rows),
         "tol": tol,
         "per": f"the {CONV_LAUNCHES_PER_BATCH} conv-kernel launches of one 128-window batch "
@@ -3784,7 +4093,8 @@ def main() -> int:
                                    "joint_cli": ensemble["joint"], "add_head_cli": ensemble[
                                        "add_head"], "serving": ensemble["serving"]},
                       "daemon": daemon, "legacy": legacy, "release": release,
-                      "data": data, "parallel": parallel, "int8": int8}))
+                      "data": data, "parallel": parallel, "int8": int8,
+                      "campaigns": campaigns}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

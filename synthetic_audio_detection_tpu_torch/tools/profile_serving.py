@@ -4,10 +4,13 @@
     python -m synthetic_audio_detection_tpu_torch.tools.profile_serving \
         --routes front-k2,front-k1,front-k1-lowp
     python -m synthetic_audio_detection_tpu_torch.tools.profile_serving --routes kernel,artifact
+    python -m synthetic_audio_detection_tpu_torch.tools.profile_serving --input-size native --mono
 
 Builds a shared-backbone ResNet-18 ensemble (3 heads, weights from
-``--seed``) and a batch of seeded noise windows, runs the bf16
-``InferencePipeline`` at 512² on each route (``kernel``: the default,
+``--seed``; ``--mono`` folds its stem to one input plane with
+``fold_to_mono``, the native serving default) and a batch of seeded noise
+windows, runs the bf16 ``InferencePipeline`` at ``--input-size`` (512,
+256, ... or ``native``; default 512) on each route (``kernel``: the default,
 ``conv3x3_max_channels=512``, the 3x3 convs and 1x1 downsamples through the
 hand-written conv kernel; ``knob-0``: every conv the kernel's plain
 composition, a float32 cuDNN conv of the bf16 values with TF32 off, the
@@ -20,10 +23,11 @@ bf16 ResNet), warms it up, then traces ``--batches``
 the mel-only front end alone on the same windows, already on the card:
 log-mel (``front-k2``: the strip kernel's ``fused_log_mel``; ``front-k1``:
 the factored kernel; ``front-k1-lowp``: the factored kernel with
-``lowp_tail``) → ``finalize_features`` at 512² → bf16. Prints, per route,
+``lowp_tail``) → ``finalize_features`` at ``--input-size`` → bf16. Prints, per route,
 the host wall per batch, the device's busy and idle share of that wall, and
 the device time per batch by part, largest first, and with ``--out`` writes
-the same as JSON. Without CUDA it exits non-zero.
+the same as JSON. It runs on CUDA only: without it, or with ``--device``
+naming another device type, it exits non-zero.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ import time
 from typing import Dict, List, Tuple
 
 import numpy as np
+
+from synthetic_audio_detection_tpu_torch.utils.config import parse_input_size
 
 # (part, substrings of the device kernel's name), first match wins
 PARTS: List[Tuple[str, Tuple[str, ...]]] = [
@@ -116,20 +122,34 @@ def profile_route(run, batches: int) -> Dict:
     }
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--batches", type=int, default=3)
     p.add_argument("--routes", default="knob-0,kernel")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default="", help="write the result as JSON to this file")
-    args = p.parse_args(argv)
+    p.add_argument("--input-size", type=parse_input_size, default=512,
+                   help="square resize target, or native / 0")
+    p.add_argument("--mono", action="store_true",
+                   help="mono-folded stem (the native serving default)")
+    p.add_argument("--device", default="cuda", help="a CUDA device (cuda or cuda:N)")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     import torch
 
+    if torch.device(args.device).type != "cuda":
+        print(f"profile_serving: runs on CUDA only, not {args.device}", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("profile_serving: CUDA is not available", file=sys.stderr)
         return 1
-    from synthetic_audio_detection_tpu_torch.ensemble.multihead import build_ensemble
+    if torch.device(args.device).index is not None:
+        torch.cuda.set_device(torch.device(args.device))
+    from synthetic_audio_detection_tpu_torch.ensemble.multihead import build_ensemble, fold_to_mono
     from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
     from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
     from synthetic_audio_detection_tpu_torch.ops import cuda_melspec, cuda_melspec_strip, melspec
@@ -143,15 +163,17 @@ def main(argv=None) -> int:
     sds = [{**base, **{k: v for k, v in BinaryClassifier("resnet18").state_dict().items()
                        if k.startswith("head.")}} for _ in range(3)]
     ens = build_ensemble(sds, ["SynA", "SynB", "SynC", "Real"])
+    if args.mono:
+        ens = fold_to_mono(ens)
     windows = (np.random.default_rng(args.seed).standard_normal((128, 128_000)) * 0.1
                ).astype(np.float32)
-    spec = SpectrogramConfig.inference(512)
+    spec = SpectrogramConfig.inference(args.input_size)
     log_mels = {
         "front-k2": cuda_melspec_strip.fused_log_mel,
         "front-k1": cuda_melspec.fused_log_mel_factored,
         "front-k1-lowp": lambda x, c: cuda_melspec.fused_log_mel_factored(x, c, lowp_tail=True),
     }
-    x = torch.from_numpy(windows).cuda()
+    x = torch.from_numpy(windows).to(args.device)
 
     def runner(route):
         if route in log_mels:
@@ -161,19 +183,22 @@ def main(argv=None) -> int:
             from synthetic_audio_detection_tpu_torch.infer import export
 
             pipe = InferencePipeline.from_artifact(export.export_serving(
-                ens, spec=spec, compute_dtype=torch.bfloat16, device="cuda"), device="cuda")
+                ens, spec=spec, compute_dtype=torch.bfloat16, device=args.device),
+                device=args.device)
             return lambda: pipe.logits_for_windows(windows)
         pipe = InferencePipeline(ens, spec=spec, infer=InferenceConfig(),
-                                 compute_dtype=torch.bfloat16, device="cuda",
+                                 compute_dtype=torch.bfloat16, device=args.device,
                                  conv3x3_max_channels={"knob-0": 0, "kernel": 512}[route])
         return lambda: pipe.logits_for_windows(windows)
 
-    result = {"device": smi, "torch": torch.__version__, "batch": 128, "input": 512,
-              "routes": {}}
+    size = args.input_size or "native"
+    result = {"device": smi, "torch": torch.__version__, "batch": 128, "input": size,
+              "mono": args.mono, "routes": {}}
     for route in args.routes.split(","):
         r = profile_route(runner(route), args.batches)
         result["routes"][route] = r
-        print(f"[profile] {route}: wall {r['wall_ms_per_batch']:.3f} ms per 128-window batch, "
+        print(f"[profile] {route}: wall {r['wall_ms_per_batch']:.3f} ms per 128-window batch at "
+              f"{size}{' (mono stem)' if args.mono else ''}, "
               f"device busy {r['device_busy_ms_per_batch']:.3f} ms (idle "
               f"{100 * r['idle_share']:.1f}%); {smi}")
         for part, ms in r["device_ms_per_batch"].items():

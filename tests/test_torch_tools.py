@@ -53,6 +53,24 @@ def test_profile_script_needs_a_gpu(capsys):
     assert "CUDA is not available" in capsys.readouterr().err
 
 
+def test_profile_script_parses_the_stage_decomposition_flags():
+    """--input-size and --mono, the flags of benchmarks/stage_decomp.py that
+    round 4's native step passes, beside the defaults (512², RGB stem)."""
+    args = P.build_parser().parse_args([])
+    assert (args.input_size, args.mono, args.device, args.routes) == (512, False, "cuda",
+                                                                      "knob-0,kernel")
+    args = P.build_parser().parse_args(["--input-size", "native", "--mono", "--device", "cuda:1"])
+    assert (args.input_size, args.mono, args.device) == (0, True, "cuda:1")
+    assert P.build_parser().parse_args(["--input-size", "256"]).input_size == 256
+    with pytest.raises(SystemExit):
+        P.build_parser().parse_args(["--input-size", "wide"])
+
+
+def test_profile_script_runs_on_cuda_only(capsys):
+    assert P.main(["--input-size", "native", "--mono", "--device", "cpu"]) == 1
+    assert "runs on CUDA only, not cpu" in capsys.readouterr().err
+
+
 def test_train_profile_script_needs_a_gpu(capsys):
     from synthetic_audio_detection_tpu_torch.tools import profile_train
 
