@@ -269,10 +269,28 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            and K = 1 ones; every study's per_class finite; the recipe, class
            orders, symlinks and tables. Prints each step's seconds and
            launches and the phase's seconds.
-18. report the train step's, the trunk runs', the ensemble, daemon, legacy,
-           release, data, parallel, int8 and campaign phases' numbers, one
-           JSON line of kernels, the nvidia-smi line, and last {"ok": true,
-           "device": {...}}.
+18. s2d     the space-to-depth stage 1 (ops/space_to_depth.py) at full
+           width: (a) InferencePipeline(use_s2d_layer1=True) on phase 6's
+           shared checkpoint and the 150 windows, float32 (logits within
+           TOL_S2D_F32 of the default pipeline's, no kernel) and bf16 (the
+           plain backbones with the s2d stage 1 instead of the fast
+           backbone: one K1 launch a batch and nothing else, clear labels
+           equal to float32's, the gap to the bf16 default printed), the
+           module path alone with the flag on and off on the same bf16
+           features (clear labels equal), windows/s of the four routes in
+           turns; (b) the submodel trainer CLI on phase 8's tree, bf16 at
+           512², one epoch (3 steps of 32 rows), with and without
+           --s2d-layer1, with and without the stop-grad boundary: exit 0,
+           one K1 launch a step, the first step's loss within TOL_S2D_LOSS
+           of the plain run's, the step's ms and rows/s; and the bound's
+           control: fresh trainers from the CLI's configuration take one
+           step on one batch, plain, s2d and s2d with a broken fold (the
+           H-mirrored kernel), the s2d loss within TOL_S2D_LOSS of the
+           plain one and the broken one beyond it.
+19. report the train step's, the trunk runs', the ensemble, daemon, legacy,
+           release, data, parallel, int8, campaign and s2d phases' numbers,
+           one JSON line of kernels, the nvidia-smi line, and last {"ok":
+           true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3624,6 +3642,271 @@ def drive_campaigns(names, work, smi):
             "studies": studies, "logo_table": table, "calibration_table": cal_table}
 
 
+# ---------------------------------------------------------------------------
+# The space-to-depth stage 1 (phase 18)
+# ---------------------------------------------------------------------------
+
+TOL_S2D_F32 = 1e-3   # float32 serving logits, s2d against the default pipeline
+# the first train step's loss, s2d against none: bf16 autocast rounds each
+# activation to 2^-8 relative and the two stage-1 forms round different
+# float32 sums; a few such roundings of the loss. s2d_loss_control shows
+# that a broken fold lands beyond it.
+TOL_S2D_LOSS = 1e-2  # relative
+S2D_STEPS = 3        # train steps a run: --epochs 1 on phase 8's 47 files, 16 a step
+
+
+@contextlib.contextmanager
+def stepping(cls):
+    """While open, each train step that the trainer class ``cls`` builds
+    also records (loss, start event, end event) into the yielded list, CUDA
+    events on the current stream around the step's enqueued work."""
+    import torch
+
+    seen = []
+    orig = cls._build_train_step
+
+    def build(self):
+        step = orig(self)
+
+        def timed(state, batch, generator):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            m = step(state, batch, generator)
+            b.record()
+            seen.append((m["loss"], a, b))
+            return m
+
+        return timed
+
+    cls._build_train_step = build
+    try:
+        yield seen
+    finally:
+        cls._build_train_step = orig
+
+
+def s2d_serving(zero_counts, counts, names, ens, windows, stamps, p32, pk, l_f32, l_kernel):
+    """Phase 18 (a): InferencePipeline(use_s2d_layer1=True) in float32 and
+    bf16 on the 150 windows against the default pipelines of the same
+    dtype; the module path alone with the flag on and off on the same bf16
+    features; windows/s of the routes in turns. → report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.ensemble.multihead import (
+        _aggregate,
+        ensemble_per_head_logits,
+        with_dtype,
+    )
+    from synthetic_audio_detection_tpu_torch.infer.pipeline import InferencePipeline
+    from synthetic_audio_detection_tpu_torch.utils.config import (
+        AudioConfig,
+        InferenceConfig,
+        SpectrogramConfig,
+    )
+
+    audio = AudioConfig(overlap=0.0, silence_threshold=1e-3)
+    spec = SpectrogramConfig.inference(out_size=512)
+    n_batches = -(-windows.shape[0] // BATCH)
+    s32 = InferencePipeline(ens, audio=audio, spec=spec, infer=InferenceConfig(), device="cuda",
+                            use_s2d_layer1=True)
+    s16 = InferencePipeline(ens, audio=audio, spec=spec, infer=InferenceConfig(),
+                            compute_dtype=torch.bfloat16, device="cuda", use_s2d_layer1=True)
+    check(s16.use_s2d_layer1 and not s16.use_fast_backbone and s16.use_kernel,
+          "the s2d bf16 pipeline: module path, K1 front end")
+    zero_counts()
+    l_s16 = s16.logits_for_windows(windows)
+    launches = counts()
+    check(launches[names["k1"]] == n_batches, f"K1 launches on the s2d route: {launches}")
+    check(sum(launches.values()) == n_batches, f"a kernel other than K1 on the s2d route: "
+                                               f"{launches}")
+    zero_counts()
+    l_s32 = s32.logits_for_windows(windows)
+    check(sum(counts().values()) == 0, "a kernel launched in the float32 s2d pipeline")
+    check(l_s16.shape == l_s32.shape == l_f32.shape and bool(np.isfinite(l_s16).all())
+          and bool(np.isfinite(l_s32).all()), "s2d logits")
+    d32 = float(np.abs(l_s32 - l_f32).max())
+    check(d32 <= TOL_S2D_F32, f"float32 s2d logits {d32} from the default's")
+
+    def labels(pipe, logits):
+        return [s["label"] for s in pipe.analyze_windows(windows, stamps,
+                                                         logits=logits)["segments"]]
+
+    clear = clear_windows(sigmoid(l_f32))
+    lab32, lab_s16 = labels(p32, l_f32), labels(s16, l_s16)
+    bad = [i for i in range(len(lab32)) if clear[i] and lab_s16[i] != lab32[i]]
+    check(not bad, f"bf16 s2d and float32 verdicts differ on clear windows {bad}")
+    gap16 = float(np.abs(l_s16 - l_kernel).max())
+
+    # the module path alone, flag on and off, on the same bf16 features
+    ens16 = with_dtype(ens, torch.bfloat16).to("cuda")
+    feats = int8_features(windows)
+    module = {}
+    for flag in (False, True):
+        module[flag] = np.concatenate([
+            _aggregate(ensemble_per_head_logits(ens16, x, s2d_stage1=flag)).float().cpu().numpy()
+            for x in feats.split(BATCH)])[:windows.shape[0]]
+    lab_on, lab_off = labels(s16, module[True]), labels(s16, module[False])
+    bad_module = [i for i in range(len(lab32)) if clear[i] and lab_on[i] != lab_off[i]]
+    check(not bad_module, f"module path, s2d on and off: clear labels differ {bad_module}")
+    gap_module = float(np.abs(module[True] - module[False]).max())
+
+    wps = {"bf16 default": [], "bf16 s2d": [], "float32 default": [], "float32 s2d": []}
+    for route, pipe in (("bf16 default", pk), ("bf16 s2d", s16), ("bf16 s2d", s16),
+                        ("bf16 default", pk), ("float32 default", p32), ("float32 s2d", s32),
+                        ("float32 s2d", s32), ("float32 default", p32)):
+        wps[route].append(windows_per_s(pipe, windows))
+    print(f"[s2d] serving, 150 windows at 512², batch 128: float32 s2d vs default max "
+          f"{d32:.4g} (tol {TOL_S2D_F32}); bf16 s2d (module path) vs the bf16 default (fast "
+          f"backbone) max {gap16:.4g} mean {float(np.abs(l_s16 - l_kernel).mean()):.4g}; "
+          f"{int(clear.sum())}/{int(clear.sum())} clear windows keep the float32 label; "
+          f"module path s2d on vs off max {gap_module:.4g} mean "
+          f"{float(np.abs(module[True] - module[False]).mean()):.4g}, clear labels equal; "
+          f"launches {launches}", flush=True)
+    for route, vals in wps.items():
+        print(f"[s2d] pipeline {route:15s}: {' / '.join(f'{v:.1f}' for v in vals)} windows/s "
+              "(median of 5 each, in turns)", flush=True)
+    return {"k1_launches": launches[names["k1"]], "f32_max_diff": d32,
+            "bf16_max_gap_to_default": gap16, "module_max_gap": gap_module,
+            "clear_windows": int(clear.sum()), "windows_per_s": wps}
+
+
+def s2d_training(zero_counts, counts, k1_name, work, smi):
+    """Phase 18 (b): the submodel trainer CLI on phase 8's tree, bf16 at
+    512², one epoch of 3 steps at 32 rows (layer 3 unfreezes at epoch 0),
+    with and without --s2d-layer1, with and without the stop-grad
+    boundary; each run's steps recorded (``stepping``); then the two
+    trainers of a boundary timed in turns on one batch, and with the
+    boundary the first-loss bound's control (``s2d_loss_control``). →
+    report fields."""
+    import torch
+
+    from synthetic_audio_detection_tpu_torch.cli import submodel_trainer
+    from synthetic_audio_detection_tpu_torch.data import dataset as ds
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+
+    data = os.path.join(work, "train_data")
+    common = ["--data-dir", data, "--Class0", "Real", "--Class1", "SynthA", "--batch-size", "16",
+              "--input-size", "512", "--bf16", "--device", "cuda", "--workers", "8",
+              "--epochs", "1", "--log-dir", os.path.join(work, "runs_s2d")]
+    samples = ds.list_samples(data, "train", ["Real", "SynthA"])
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for boundary in ("stop-grad-boundary", "no-stop-grad-boundary"):
+            trainers = {}
+            for s2d in (False, True):
+                key = f"{'s2d' if s2d else 'plain'} {boundary}"
+                argv = common + [f"--{boundary}", "--checkpoint-dir", os.path.join(work, "ck_s2d")]
+                if s2d:
+                    argv.append("--s2d-layer1")
+                zero_counts()
+                t0 = time.perf_counter()
+                with observing(Trainer) as seen, stepping(Trainer) as steps, \
+                        contextlib.redirect_stdout(io.StringIO()):
+                    rc = submodel_trainer.main(argv)
+                seconds = time.perf_counter() - t0
+                launches = counts()
+                check(rc == 0, f"trainer CLI ({key}) exit code {rc}")
+                tr = trainers[s2d] = seen["trainers"][0]
+                check(tr.model.base.s2d_stage1 is s2d, f"{key}: the model's s2d flag")
+                check(tr.train_steps_run == S2D_STEPS == len(steps),
+                      f"{key}: {tr.train_steps_run} train steps")
+                check(launches[k1_name] == S2D_STEPS and sum(launches.values()) == S2D_STEPS,
+                      f"{key}: launches {launches}, not one K1 a train step")
+                torch.cuda.synchronize()
+                losses = [float(m) for m, _, _ in steps]
+                check(all(np.isfinite(losses)), f"{key}: losses {losses}")
+                out[key] = {"first_loss": losses[0], "losses": losses, "ms": [],
+                            "cli_step_ms": [a.elapsed_time(b) for _, a, b in steps],
+                            "seconds": seconds, "launches": launches}
+                shutil.rmtree(os.path.join(work, "ck_s2d"), ignore_errors=True)
+            batch = next(trainers[False]._batches(ds.WaveformBatcher(
+                samples[:16], 16, shuffle=False, workers=8), 0, TRAIN_ROWS))
+            for s2d in (False, True, True, False):
+                tr = trainers[s2d]
+                out[f"{'s2d' if s2d else 'plain'} {boundary}"]["ms"].append(median_ms(
+                    lambda: tr._train_step(tr.state, batch, tr.generator), n=20, warmup=3))
+            if boundary == "stop-grad-boundary":
+                out["control"] = s2d_loss_control(trainers[True], batch, work)
+            del trainers, tr, seen
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    for boundary in ("stop-grad-boundary", "no-stop-grad-boundary"):
+        a, b = out[f"plain {boundary}"], out[f"s2d {boundary}"]
+        for r in (a, b):
+            r["rows_per_s"] = [TRAIN_ROWS / ms * 1e3 for ms in r["ms"]]
+        rel = abs(b["first_loss"] - a["first_loss"]) / abs(a["first_loss"])
+        out[f"loss_rel_diff {boundary}"] = rel
+        print(f"[s2d] trainer CLI, bf16 512², {TRAIN_ROWS} rows, --{boundary}: first loss plain "
+              f"{a['first_loss']:.6f} s2d {b['first_loss']:.6f} (rel {rel:.3g}, tol "
+              f"{TOL_S2D_LOSS}); step plain {' / '.join(f'{t:.3f}' for t in a['ms'])} ms, s2d "
+              f"{' / '.join(f'{t:.3f}' for t in b['ms'])} ms (median of 20 after 3, CUDA events, "
+              f"in turns; rows/s plain {' / '.join(f'{r:.1f}' for r in a['rows_per_s'])}, s2d "
+              f"{' / '.join(f'{r:.1f}' for r in b['rows_per_s'])}); in the CLI "
+              f"{' '.join(f'{t:.1f}' for t in a['cli_step_ms'])} / "
+              f"{' '.join(f'{t:.1f}' for t in b['cli_step_ms'])} ms; run "
+              f"{a['seconds']:.1f} / {b['seconds']:.1f} s | {smi}", flush=True)
+        check(rel <= TOL_S2D_LOSS, f"--{boundary}: the s2d first loss off the plain one")
+    ctl = out["control"]
+    print(f"[s2d] the loss bound's control, one step of fresh trainers on one batch: loss plain "
+          f"{ctl['loss']['plain']:.6f}, s2d {ctl['loss']['s2d']:.6f} (rel "
+          f"{ctl['rel']['s2d']:.3g}), broken fold {ctl['loss']['broken fold']:.6f} (rel "
+          f"{ctl['rel']['broken fold']:.3g}); tol {TOL_S2D_LOSS}", flush=True)
+    check(ctl["rel"]["s2d"] <= TOL_S2D_LOSS, "the control's s2d loss off the plain one")
+    check(ctl["rel"]["broken fold"] > TOL_S2D_LOSS,
+          "the loss bound does not tell a broken fold from the s2d stage")
+    return out
+
+
+def s2d_loss_control(tr, batch, work):
+    """The first-loss bound's control: fresh trainers from ``tr``'s
+    configuration (the s2d CLI run's, so the same seed, initial weights and
+    augmentation draws) take one step on ``batch``: plain, s2d, and s2d
+    with a broken fold (each folded kernel built from the H-mirrored
+    kernel, a conv the s2d stage must not compute). → {"loss": ..., "rel":
+    each loss's relative distance to the plain one}."""
+    import dataclasses
+
+    from synthetic_audio_detection_tpu_torch.ops import space_to_depth as s2d
+    from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
+
+    fold = s2d.fold_conv3x3_s2d_h
+    loss = {}
+    for key, flag, patched in (("plain", False, fold), ("s2d", True, fold),
+                               ("broken fold", True, lambda w: fold(w.flip(2)))):
+        fresh = Trainer(dataclasses.replace(tr.cfg, s2d_stage1=flag), model_name=tr.model_name,
+                        spec_cfg=tr.spec_cfg, augment=tr.augment, class_names=tr.class_names,
+                        log_dir=os.path.join(work, "runs_s2d_control"), device="cuda")
+        s2d.fold_conv3x3_s2d_h = patched
+        try:
+            loss[key] = float(fresh._train_step(fresh.state, batch, fresh.generator)["loss"])
+        finally:
+            s2d.fold_conv3x3_s2d_h = fold
+        del fresh
+    return {"loss": loss, "rel": {k: abs(loss[k] - loss["plain"]) / abs(loss["plain"])
+                                  for k in ("s2d", "broken fold")}}
+
+
+def drive_s2d(zero_counts, counts, names, work, ens, windows, stamps, p32, pk, l_f32, l_kernel,
+              smi):
+    """Phase 18: the space-to-depth stage 1, serving and training
+    (s2d_serving, s2d_training)."""
+    import torch
+
+    t0 = time.perf_counter()
+    serving = s2d_serving(zero_counts, counts, names, ens, windows, stamps, p32, pk, l_f32,
+                          l_kernel)
+    torch.cuda.empty_cache()
+    training = s2d_training(zero_counts, counts, names["k1"], work, smi)
+    return {"serving": serving, "training": training,
+            "k1_launches": serving["k1_launches"] + sum(
+                v["launches"][names["k1"]] for k, v in training.items()
+                if isinstance(v, dict) and "launches" in v),
+            "phase_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     import torch
 
@@ -3916,10 +4199,15 @@ def main() -> int:
         # 17. the study campaigns on phase 14's prepared tree
         campaigns = drive_campaigns({"k1": k1.name, "conv": conv.name}, work, smi)
         print(f"[campaigns] phase took {campaigns['phase_s']:.1f} s | {smi}", flush=True)
+
+        # 18. the space-to-depth stage 1
+        s2d = drive_s2d(zero_counts, counts, {"k1": k1.name, "conv": conv.name}, work,
+                        ckpts["shared"], windows, stamps, p32, pk, l_f32, l_kernel, smi)
+        print(f"[s2d] phase took {s2d['phase_s']:.1f} s | {smi}", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 18. report
+    # 19. report
     z = k1_report[True]
     k1_bound, k1_by = k1_report["bound"]
     report = [{
@@ -3931,7 +4219,8 @@ def main() -> int:
                      + sum(t["launches"][k1.name] for t in trunk.values())
                      + ensemble["k1_launches"] + daemon["k1_launches"]
                      + release["k1_launches"] + data["k1_launches"]
-                     + parallel["k1_launches"] + campaigns["k1_launches"]),
+                     + parallel["k1_launches"] + campaigns["k1_launches"]
+                     + s2d["k1_launches"]),
         "serving_launches": sum(c[k1.name] for c in cli_launches.values()),
         "train_launches": train["k1_launches"],
         "ensemble_launches": ensemble["k1_launches"],
@@ -3940,6 +4229,7 @@ def main() -> int:
         "data_launches": data["k1_launches"],
         "parallel_launches": parallel["k1_launches"],
         "campaign_launches": campaigns["k1_launches"],
+        "s2d_launches": s2d["k1_launches"],
         "max_abs_err": z["err"],
         "tol": f"{z['tol']:g} on z-scores at [128, 128000], against the plain version",
         "max_abs_err_db": k1_report[False]["err"],
@@ -4094,7 +4384,8 @@ def main() -> int:
                                        "add_head"], "serving": ensemble["serving"]},
                       "daemon": daemon, "legacy": legacy, "release": release,
                       "data": data, "parallel": parallel, "int8": int8,
-                      "campaigns": campaigns}))
+                      "campaigns": campaigns,
+                      "s2d": {k: v for k, v in s2d.items() if k != "k1_launches"}}))
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

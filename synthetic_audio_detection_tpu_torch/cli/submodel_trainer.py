@@ -3,9 +3,9 @@ reference package's ``cli/submodel_trainer.py``: the same flags).
 
 ``--device`` picks the torch device (default ``cuda``); ``--device cuda``
 without a usable GPU is an error, never a CPU run. ``--gpu`` and
-``--num_gpus`` are accepted and ignored, as in the reference package. Not
-ported, and refused with a message: ``--s2d-layer1`` (the space-to-depth
-stage 1 works around the TPU's conv emitter).
+``--num_gpus`` are accepted and ignored, as in the reference package.
+``--s2d-layer1`` runs stage 1 in space-to-depth form; left out, it
+resolves as the reference package's auto rule resolves off a TPU: off.
 
 Usage:
     python -m synthetic_audio_detection_tpu_torch.cli.submodel_trainer \\
@@ -63,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Spectrogram image size (512 = reference fidelity; 'native' trains "
                    "at the mel's own 128-by-frames resolution with no resize)")
     p.add_argument("--s2d-layer1", action=argparse.BooleanOptionalAction, default=None,
-                   help="Not ported (the space-to-depth stage 1 works around the TPU "
-                   "conv emitter); --s2d-layer1 is refused")
+                   help="Run stage 1 in exact H-only space-to-depth form (identical "
+                   "parameters, gradients and statistics; models/resnet.py:S2DBasicBlock). "
+                   "Default: auto, which the reference engages on a TPU only: off")
     p.add_argument("--data-backend", default="threads", choices=("threads", "grain"),
                    help="Input pipeline: thread pool (default) or worker processes "
                    "(a torch DataLoader)")
@@ -126,12 +127,18 @@ def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
+def _resolve_s2d(args) -> bool:
+    """The reference's rule: an explicit ``--s2d-layer1`` or
+    ``--no-s2d-layer1`` wins; auto is off with the stop-grad boundary on,
+    and otherwise on only for a TPU backend at 512² and up with a
+    basic-block backbone, which a torch device never is."""
+    if args.s2d_layer1 is not None:
+        return args.s2d_layer1
+    return False
+
+
 def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    if args.s2d_layer1:
-        parser.error("--s2d-layer1 is not ported: the space-to-depth stage 1 works around "
-                     "the TPU conv emitter and has no GPU counterpart")
+    args = build_parser().parse_args(argv)
     joined = join_group(args.device)
     try:
         return _run(args)
@@ -165,6 +172,7 @@ def _run(args) -> int:
         class1=args.Class1,
         hard_negative_classes=tuple(args.hard_negative_classes),
         data_backend=args.data_backend,
+        s2d_stage1=_resolve_s2d(args),
         stop_grad_boundary=args.stop_grad_boundary,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         mel_dft=args.mel_dft,

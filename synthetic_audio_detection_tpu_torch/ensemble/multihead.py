@@ -182,26 +182,31 @@ def heads_forward(layers: List[tuple], pooled: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def ensemble_per_head_logits(ens: MultiHeadEnsemble, x: torch.Tensor,
                              fast_backbone: bool = False,
-                             conv3x3_max_channels: int = 0) -> torch.Tensor:
+                             conv3x3_max_channels: int = 0,
+                             s2d_stage1: bool = False) -> torch.Tensor:
     """x [B, C, H, W] → per-head logits [N, B, 2] (before aggregation).
     ``fast_backbone`` runs a shared backbone through the FastResNet, with
     ``conv3x3_max_channels`` as its kernel knob (no effect without
-    ``fast_backbone`` or on a dense layout)."""
+    ``fast_backbone`` or on a dense layout). ``s2d_stage1`` runs the plain
+    backbones' stage 1 in space-to-depth form (``models/resnet.py``); the
+    FastResNet does not read it, as the reference's fast path does not
+    read the model's flag."""
     x = x.to(ens.dtype)
     fast = fast_backbone and ens.shared_backbone
     if ens.dtype != torch.float32 and not fast:  # FastResNet lays out its own input
         x = x.contiguous(memory_format=torch.channels_last)
     n = ens.num_heads
     if ens.shared_backbone:
-        feats = ens.compute_backbone(0, fast=fast,
-                                     conv3x3_max_channels=conv3x3_max_channels)(x)
+        net = ens.compute_backbone(0, fast=fast, conv3x3_max_channels=conv3x3_max_channels)
+        feats = net(x) if fast else net(x, s2d_stage1=s2d_stage1)
         pooled = feats.mean(dim=(2, 3)).expand(n, -1, -1)
     elif ens.trunk is not None:
-        feats = ens.compute_trunk()(x)
+        feats = ens.compute_trunk()(x, s2d_stage1=s2d_stage1)
         pooled = torch.stack([ens.compute_backbone(i)(feats).mean(dim=(2, 3))
                               for i in range(n)])
     else:
-        pooled = torch.stack([ens.compute_backbone(i)(x).mean(dim=(2, 3)) for i in range(n)])
+        pooled = torch.stack([ens.compute_backbone(i)(x, s2d_stage1=s2d_stage1).mean(dim=(2, 3))
+                              for i in range(n)])
     return heads_forward(ens.stacked_heads(), pooled)
 
 

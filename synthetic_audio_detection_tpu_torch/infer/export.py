@@ -69,7 +69,8 @@ class ServingProgram(nn.Module):
         from synthetic_audio_detection_tpu_torch.infer.pipeline import forward_windows
 
         return forward_windows(self.ensemble, windows, self.spec, self.sample_rate,
-                               use_kernel=False, use_fast_backbone=False)
+                               use_kernel=False, use_fast_backbone=False,
+                               use_s2d_layer1=False)
 
 
 @dataclasses.dataclass

@@ -25,6 +25,12 @@ channels through the hand-written conv kernel (ops/cuda_conv.py), and 0
 through the kernel's plain composition, with the same numerics. Elsewhere
 the knob has no effect.
 
+``use_s2d_layer1`` True runs the plain backbones with stage 1 in
+space-to-depth form (the model-level flag, ``models/resnet.py``) and turns
+the fast backbone off, as the reference's flag does; the front-end gate
+stays. Its auto (None) follows the reference's rule, which engages on a
+TPU only: off.
+
 The pipeline runs on the GPU unless the caller asks for ``device="cpu"``.
 
 Data-parallel serving (``mesh``, a ``parallel.sharding.Mesh``, as the
@@ -130,10 +136,12 @@ def forward_windows(
     use_fast_backbone: bool = False,
     return_per_head: bool = False,
     conv3x3_max_channels: int = 512,
+    use_s2d_layer1: bool = False,
 ):
     """[B, T] windows (float32, or int16 PCM) → [B, N+1] logits, and with
     ``return_per_head`` also the per-head logits [N, B, 2] of the same
-    pass."""
+    pass. ``use_s2d_layer1`` runs the plain backbones with stage 1 in
+    space-to-depth form, in place of the fast backbone."""
     windows = dequantize(windows)
     dtype = ensemble.dtype
     if use_kernel:
@@ -146,8 +154,9 @@ def forward_windows(
         x = feats[:, None]
     else:
         x = melspec.replicate_channels(feats, spec_cfg.out_channels)
-    logits_nh = ensemble_per_head_logits(ensemble, x, fast_backbone=use_fast_backbone,
-                                         conv3x3_max_channels=conv3x3_max_channels)
+    logits_nh = ensemble_per_head_logits(
+        ensemble, x, fast_backbone=use_fast_backbone and not use_s2d_layer1,
+        conv3x3_max_channels=conv3x3_max_channels, s2d_stage1=use_s2d_layer1)
     agg = _aggregate(logits_nh)
     return (agg, logits_nh) if return_per_head else agg
 
@@ -166,6 +175,7 @@ class InferencePipeline:
         transport_dtype: str = "float32",
         conv3x3_max_channels: int = 512,
         mesh=None,
+        use_s2d_layer1: Optional[bool] = None,
     ):
         self.mesh = mesh
         self.device = torch.device(device) if mesh is None else mesh.device
@@ -192,7 +202,11 @@ class InferencePipeline:
         if transport_dtype not in ("float32", "int16"):
             raise ValueError(f"unsupported transport_dtype {transport_dtype!r}")
         self.transport_dtype = transport_dtype
-        self.use_fast_backbone = on_gpu and reduced and self.ensemble.shared_backbone
+        # the reference's auto rule needs a TPU backend (and a reduced
+        # dtype, a basic-block backbone, batches of at most 32)
+        self.use_s2d_layer1 = bool(use_s2d_layer1)
+        self.use_fast_backbone = (on_gpu and reduced and self.ensemble.shared_backbone
+                                  and not self.use_s2d_layer1)
         self.conv3x3_max_channels = conv3x3_max_channels if self.use_fast_backbone else 0
         self._bucket_sizes: Optional[List[int]] = None
         self._program = None
@@ -223,7 +237,7 @@ class InferencePipeline:
         self.infer = infer or InferenceConfig(batch_size=sizes[-1])
         self._resolve_calibration()
         self.compute_dtype = getattr(torch, meta["compute_dtype"])
-        self.use_kernel = self.use_fast_backbone = False
+        self.use_kernel = self.use_fast_backbone = self.use_s2d_layer1 = False
         self.conv3x3_max_channels = 0
         self.transport_dtype = meta["transport_dtype"]
         self._bucket_sizes = sizes
@@ -241,7 +255,8 @@ class InferencePipeline:
                 self.ensemble, batch, self.spec, self.audio.sample_rate,
                 use_kernel=self.use_kernel,
                 use_fast_backbone=self.use_fast_backbone, return_per_head=return_per_head,
-                conv3x3_max_channels=self.conv3x3_max_channels)
+                conv3x3_max_channels=self.conv3x3_max_channels,
+                use_s2d_layer1=self.use_s2d_layer1)
 
     # -- calibration --------------------------------------------------------
 

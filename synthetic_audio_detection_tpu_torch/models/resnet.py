@@ -5,9 +5,9 @@ basic or bottleneck blocks with the stride on the 3x3 conv (v1.5).
 NCHW, with timm/torchvision parameter names (``conv1``, ``bn1``,
 ``layer1.0.conv1``, ``layer2.0.downsample.0`` …), so the reference's merged
 ``.pth`` state dicts load as they are. ``forward`` returns the un-pooled
-feature map (timm ``forward_features``). The space-to-depth stage-1 blocks
-of the reference package are not ported: they work around the TPU conv
-emitter.
+feature map (timm ``forward_features``). ``s2d_stage1`` runs a basic-block
+stage 1 in H-only space-to-depth form (``S2DBasicBlock``), as the
+reference's flag does: the same parameters and the same function.
 
 In train mode BatchNorm follows flax, as the reference trains
 (``FlaxBatchNorm2d``), and ``stop_grad_stage`` runs the stages before it
@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+
+from synthetic_audio_detection_tpu_torch.ops import space_to_depth as s2d
 
 RESNET_SPECS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -117,6 +119,52 @@ class BasicBlock(nn.Module):
         return torch.relu(self.bn2(self.conv2(out)) + identity)
 
 
+def _phase_bn(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+    """``bn`` on an H-only s2d tensor [B, 2C, h, W] per original channel:
+    the two phases are rows of the same channel, so the statistics (Σx,
+    Σx², n) are the plain block's, as the reference's reshape to [..., 2,
+    C] makes them. A contiguous tensor is [2B, C, h, W] as a view, a
+    channels_last one [B, C, h, 2W] (its NHWC view [B, h, W, 2C] is [B, h,
+    2W, C])."""
+    b, c2, h, w = y.shape
+    c = c2 // 2
+    if y.is_contiguous():
+        return bn(y.view(b * 2, c, h, w)).view(b, c2, h, w)
+    z = bn(y.permute(0, 2, 3, 1).reshape(b, h, w * 2, c).permute(0, 3, 1, 2))
+    return z.permute(0, 2, 3, 1).reshape(b, h, w, c2).permute(0, 3, 1, 2)
+
+
+class _S2DConv3x3:
+    """A stride-1 3x3 ``nn.Conv2d`` evaluated in H-only s2d form: its own
+    [F, C, 3, 3] weight folds to [2F, 2C, 3, 3] in the forward, so
+    gradients reach the original kernel and a checkpoint is the plain
+    conv's. The conv is ``F.conv2d`` on the operands as they are, as the
+    ``nn.Conv2d``'s (under the caller's autocast and TF32 flags)."""
+
+    def __init__(self, conv: nn.Conv2d):
+        self.conv = conv
+
+    def __call__(self, x_s2dh: torch.Tensor) -> torch.Tensor:
+        wf = s2d.fold_conv3x3_s2d_h(self.conv.weight)
+        return s2d.conv3x3_s2d_h(x_s2dh, wf, preferred_element_type=None)
+
+
+class S2DBasicBlock:
+    """A stage-1 ``BasicBlock`` (stride 1, no downsample) evaluated in
+    H-only s2d space [B, 2C, H/2, W] on the block's own parameters: the
+    folded convs, BatchNorm over both phases (``_phase_bn``), the residual
+    and ReLU, which commute with the rearrangement."""
+
+    def __init__(self, block: BasicBlock):
+        self.block = block
+
+    def __call__(self, x_s2dh: torch.Tensor) -> torch.Tensor:
+        blk = self.block
+        out = torch.relu(_phase_bn(blk.bn1, _S2DConv3x3(blk.conv1)(x_s2dh)))
+        out = _phase_bn(blk.bn2, _S2DConv3x3(blk.conv2)(out))
+        return torch.relu(out + x_s2dh)
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -146,12 +194,19 @@ class ResNet(nn.Module):
     the full model's parameter names (``layer{k}.{b}.*``), so a trunk and a
     tail state dict together are the full backbone's. ``stop_grad_stage``
     (1-based, 0 off; the train step sets it) runs everything before that
-    stage under ``torch.no_grad()`` in train mode."""
+    stage under ``torch.no_grad()`` in train mode.
+
+    ``s2d_stage1`` (or ``forward``'s argument of that name, which overrides
+    it) runs stage 1 through ``S2DBasicBlock`` where the reference's gate
+    engages it: a basic-block stage 1 whose input height is even and at
+    least 128 (512² inputs); elsewhere it changes nothing."""
 
     def __init__(self, block: str, stage_sizes, in_channels: int = 3,
-                 first_stage: int = 1, last_stage: Optional[int] = None):
+                 first_stage: int = 1, last_stage: Optional[int] = None,
+                 s2d_stage1: bool = False):
         super().__init__()
         self.stop_grad_stage = 0
+        self.s2d_stage1 = s2d_stage1
         last = len(stage_sizes) if last_stage is None else last_stage
         if not 1 <= first_stage <= last <= len(stage_sizes):
             raise ValueError(f"stage slice [{first_stage}, {last}] out of range for "
@@ -183,25 +238,37 @@ class ResNet(nn.Module):
             setattr(self, f"layer{stage}", nn.Sequential(*layers))
         self.num_features = inplanes
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _stage(self, stage: int, x: torch.Tensor, s2d_stage1: bool) -> torch.Tensor:
+        layer = getattr(self, f"layer{stage}")
+        # the reference's gate: stage-1 spatial >= 128 (512² inputs), even
+        if (stage == 1 and s2d_stage1 and self.block == "basic"
+                and x.shape[2] >= 128 and x.shape[2] % 2 == 0):
+            xs = s2d.space_to_depth_h(x)
+            for blk in layer:
+                xs = S2DBasicBlock(blk)(xs)
+            return s2d.depth_to_space_h(xs)
+        return layer(x)
+
+    def forward(self, x: torch.Tensor, s2d_stage1: Optional[bool] = None) -> torch.Tensor:
+        s2d_stage1 = self.s2d_stage1 if s2d_stage1 is None else s2d_stage1
         boundary = self.stop_grad_stage if self.training else 0
         frozen = torch.no_grad() if boundary else contextlib.nullcontext()
         with frozen:
             if self.first_stage == 1:
                 x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
             for stage in range(self.first_stage, min(boundary, self.last_stage + 1)):
-                x = getattr(self, f"layer{stage}")(x)
+                x = self._stage(stage, x, s2d_stage1)
         for stage in range(max(boundary, self.first_stage), self.last_stage + 1):
-            x = getattr(self, f"layer{stage}")(x)
+            x = self._stage(stage, x, s2d_stage1)
         return x
 
 
 def create_resnet(name: str, in_channels: int = 3, first_stage: int = 1,
-                  last_stage: Optional[int] = None) -> ResNet:
+                  last_stage: Optional[int] = None, s2d_stage1: bool = False) -> ResNet:
     if name not in RESNET_SPECS:
         raise ValueError(f"unknown backbone {name!r}; choose from {sorted(RESNET_SPECS)}")
     block, stages = RESNET_SPECS[name]
-    return ResNet(block, stages, in_channels, first_stage, last_stage)
+    return ResNet(block, stages, in_channels, first_stage, last_stage, s2d_stage1)
 
 
 def backbone_num_features(name: str) -> int:

@@ -252,8 +252,6 @@ class Trainer(StepTrainer):
         use_mesh: bool = True,
         mesh: Optional[sh.Mesh] = None,
     ):
-        if cfg.s2d_stage1:
-            raise ValueError("the space-to-depth stage 1 is not ported")
         if cfg.checkpoint_backend not in ("native", "orbax"):
             raise ValueError(f"unknown checkpoint backend {cfg.checkpoint_backend!r}")
         self.cfg = cfg
@@ -265,7 +263,8 @@ class Trainer(StepTrainer):
         self.compute_dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         on_card = self.device.type == "cuda"
         with torch.random.fork_rng(devices=[]):  # the constructor's own draws
-            model = BinaryClassifier(model_name, num_outputs=len(self.class_names))
+            model = BinaryClassifier(model_name, num_outputs=len(self.class_names),
+                                     s2d_stage1=cfg.s2d_stage1)
         flax_default_init_(model, torch.Generator().manual_seed(cfg.seed))
         model = model.to(self.device)
         if on_card:

@@ -205,7 +205,7 @@ class TrainConfig:
     # 'native' (msgpack + the .pth twin) or 'orbax' (step-indexed, asynchronous,
     # with retention: checkpoints/orbax_io.py; + the .pth twin)
     checkpoint_backend: str = "native"
-    # the space-to-depth stage 1 is not ported: must stay False
+    # stage 1 in H-only space-to-depth form (models/resnet.py:S2DBasicBlock)
     s2d_stage1: bool = False
     # no backward pass through the frozen stages
     stop_grad_boundary: bool = True

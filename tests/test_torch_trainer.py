@@ -96,15 +96,57 @@ def test_trainer_defaults_to_cuda():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """The space-to-depth stage 1 stays unported; the orbax backend is
-    ported (tests/test_torch_orbax_io.py), and an unknown backend is
-    refused."""
-    with pytest.raises(ValueError, match="not ported"):
-        Trainer(TrainConfig(s2d_stage1=True), spec_cfg=SPEC, device="cpu")
+    """The orbax backend is ported (tests/test_torch_orbax_io.py), and an
+    unknown backend is refused."""
     with pytest.raises(ValueError, match="unknown checkpoint backend"):
         Trainer(TrainConfig(checkpoint_backend="msgpack"), spec_cfg=SPEC, device="cpu")
     assert Trainer(TrainConfig(checkpoint_backend="orbax"), spec_cfg=SPEC,
                    device="cpu").checkpointer is None
+
+
+def test_s2d_stage1_step_equals_plain_step(tmp_path):
+    """TrainConfig(s2d_stage1=True) at 512² (stage-1 height 128: the gate
+    engages) with the full backward: one train step from the same seed on
+    the same 4 rows as the plain model's. Float32 reassociation moves the
+    gradients by up to about 0.5% of their norm (as much as a plain step in
+    channels_last layout does; float64 is exact,
+    tests/test_torch_space_to_depth.py), so: the loss to 1e-5, every BN
+    statistic to 1e-5, the Adam first moments to 2% of their norm (or of
+    1% of the largest for a moment that is rounding only), the frozen
+    weights equal and the trained ones within AdamW's 2·lr."""
+    from synthetic_audio_detection_tpu_torch.ops import space_to_depth as s2d
+
+    rng = np.random.default_rng(1)
+    batch = {"audio": torch.from_numpy((rng.standard_normal((4, 32_000)) * 0.2).astype(
+        np.float32)), "label": torch.tensor([0, 1, 1, 0]), "weight": torch.tensor([1., 1, 1, 0])}
+    spec = SpectrogramConfig(out_size=512, mel_norm=None)
+    calls, orig = [], s2d.space_to_depth_h
+    out = []
+    for flag in (False, True):
+        cfg = TrainConfig(s2d_stage1=flag, stop_grad_boundary=False, seed=3, batch_size=2)
+        tr = Trainer(cfg, spec_cfg=spec, device="cpu", log_dir=str(tmp_path / "runs"))
+        assert tr.model.base.s2d_stage1 is flag
+        s2d.space_to_depth_h = lambda x: (calls.append(tuple(x.shape)), orig(x))[1]
+        try:
+            m = tr._train_step(tr.state, batch, tr.generator)
+        finally:
+            s2d.space_to_depth_h = orig
+        mu, _ = tr.state.moments()
+        out.append((float(m["loss"]), tr.state_dict(), {k: v.numpy() for k, v in mu.items()}))
+    assert calls == [(4, 64, 128, 128)]
+    (loss_a, sd_a, mu_a), (loss_b, sd_b, mu_b) = out
+    np.testing.assert_allclose(loss_b, loss_a, rtol=1e-5)
+    top = max(np.linalg.norm(v) for v in mu_a.values())
+    for k, v in mu_a.items():
+        scale = max(np.linalg.norm(v), 1e-2 * top)
+        assert np.linalg.norm(mu_b[k] - v) <= 2e-2 * scale, k
+    for k, v in sd_a.items():
+        if "running" in k:
+            np.testing.assert_allclose(sd_b[k], v, rtol=1e-5, atol=1e-5, err_msg=k)
+        elif k in mu_a:
+            assert np.abs(sd_b[k] - v).max() <= 2 * TrainConfig().lr + 1e-6, k
+        else:
+            np.testing.assert_array_equal(sd_b[k], v, err_msg=k)
 
 
 def test_fit_counts_steps_and_pads_batches(trained):
@@ -301,8 +343,9 @@ def test_cli_trains_resumes_and_evaluates_on_cpu(tmp_path):
                                                "--resume", "ck/best_model.ckpt.pth"]) == 0
         assert submodel_trainer.main(common + ["--evaluate", "--resume",
                                                "ck/best_model.ckpt"]) == 0
-        with pytest.raises(SystemExit):
-            submodel_trainer.main(common + ["--s2d-layer1"])
+        assert submodel_trainer.main(common + ["--epochs", "1", "--checkpoint-dir", "ck3",
+                                               "--s2d-layer1"]) == 0
+        assert os.path.exists("ck3/best_model.ckpt.pth")
     finally:
         os.chdir(cwd)
 
