@@ -102,7 +102,9 @@ Phases, in order; the first that fails ends the run with a non-zero exit:
            Before all this, in the kernels phase, K1 under
            SpectrogramConfig.train() (dB only) at [32, 128000] against its
            plain version: float32 and int16 windows and 8 zero tail rows,
-           identical bits across runs, z-scores too, and its time.
+           identical bits across runs, z-scores too, and its time beside
+           the library composition of the same dB plane (torch.stft → |X|²
+           → filterbank matmul → dB).
 9. trunk   a trunk-shared ensemble (stem to layer3 shared, layer4 and the
            heads per sub-model) through the CLI from its .pth and from
            save_merged_native's file: the JSON of the dense layout of the
@@ -654,12 +656,13 @@ def launch_ms(label, fn, names, calls: int = 10):
     return split
 
 
-def library_log_mel_ms(x, cfg, ref32):
-    """The standardized log-mel as a composition of library calls, not one
-    call: torch.stft (cuFFT; centre reflect pad, periodic Hann) → |X|² →
-    the filterbank's torch.matmul → dB with the top_db clamp → standardize.
-    Checked against the float32 factored front end (the same function to
-    float32 rounding); → its median time in ms."""
+def library_log_mel_ms(x, cfg, ref32, standardize=True, tol=1e-3):
+    """The standardized log-mel (or with ``standardize`` False the clamped
+    dB plane) as a composition of library calls, not one call: torch.stft
+    (cuFFT; centre reflect pad, periodic Hann) → |X|² → the filterbank's
+    torch.matmul → dB with the top_db clamp (→ standardize). Checked
+    against the float32 factored front end (the same function to float32
+    rounding) within ``tol``; → its median time in ms."""
     import torch
 
     from synthetic_audio_detection_tpu_torch.ops import melspec
@@ -671,16 +674,18 @@ def library_log_mel_ms(x, cfg, ref32):
         spec = torch.stft(x, cfg.n_fft, cfg.hop_length, window=window, center=True,
                           pad_mode=cfg.pad_mode, return_complex=True)
         mel = torch.matmul(fb_t, spec.real.square() + spec.imag.square())
-        return melspec.standardize(melspec.amplitude_to_db(mel, cfg.top_db), cfg.eps)
+        db = melspec.amplitude_to_db(mel, cfg.top_db)
+        return melspec.standardize(db, cfg.eps) if standardize else db
 
     got = library()
     torch.cuda.synchronize()
     err = float((got - ref32).abs().max())
     ms = median_ms(library)
+    what = "dB → standardize" if standardize else "dB"
     print(f"[kernels] K1/K2's function as library calls (torch.stft → |X|² → filterbank matmul → "
-          f"dB → standardize): {ms:.4f} ms, max|library - float32 factored| {err:.3g} (≤ 1e-3)",
-          flush=True)
-    check(err <= 1e-3, "the library composition disagrees with the float32 front end")
+          f"{what}) at {list(x.shape)}: {ms:.4f} ms, max|library - float32 factored| {err:.3g} "
+          f"(≤ {tol:g})", flush=True)
+    check(err <= tol, f"the library composition ({what}) disagrees with the float32 front end")
     return ms
 
 
@@ -1180,6 +1185,8 @@ def check_k1_train(k1, smi):
     ms_int16 = median_ms(lambda: k1(pcm, cfg, standardize=False))
     plain_ms = median_ms(lambda: melspec.log_mel_factored(x, cfg, standardize=False,
                                                           dft_dtype=torch.bfloat16))
+    library_ms = library_log_mel_ms(x, cfg, melspec.log_mel_factored(
+        x, cfg, standardize=False, dft_dtype=torch.float32), standardize=False, tol=TOL_DB)
     c = k1.constants(cfg, SR, x.device)
     w = cuda_melspec.work(c, cfg, TRAIN_ROWS, 128_000)
     nbytes = (x.numel() * 4 + TRAIN_ROWS * cfg.n_mels * 251 * 4
@@ -1190,8 +1197,10 @@ def check_k1_train(k1, smi):
           f"float32 {errs['float32']:.3g}, int16 {errs['int16']:.3g}, 8 zero tail rows "
           f"{errs['padded']:.3g} dB (tol {TOL_DB}), identical bits across runs; z {errs['z']:.3g} "
           f"(tol {TOL_Z}); kernel {ms:.4f} ms float32 in, {ms_int16:.4f} ms int16 in, plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
-    return dict(errs=errs, ms=ms, ms_int16=ms_int16, plain_ms=plain_ms, bound=(b_ms, b_by))
+          f"{plain_ms:.4f} ms, library (torch.stft → |X|² → filterbank matmul → dB) "
+          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) | {smi}", flush=True)
+    return dict(errs=errs, ms=ms, ms_int16=ms_int16, plain_ms=plain_ms, library_ms=library_ms,
+                bound=(b_ms, b_by))
 
 
 def write_train_tree(root):

@@ -19,10 +19,11 @@ The reference's scheme, kept:
 The reference computes each int8 conv with ``lax.conv_general_dilated``
 outside any Pallas kernel; here a conv is a zero-padded int8 im2col of the
 NHWC activation (``Tensor.unfold``, K ordered (kh, kw, ci)) and one
-``torch._int_mm``: cuBLASLt's int8 tensor cores on the card, exact int32 on
-the CPU. ``_int_mm`` on CUDA takes K and N multiples of 8 and M > 16: K is
-padded with zero columns and zero weight rows (the stem's 7·7·3 = 147 to
-152), M with zero rows to 32 when it is 16 or less. A shape it still
+``torch._int_mm``: cuBLASLt's int8 tensor cores on the card; on the CPU a
+float64 product, exact int32 on any instruction set. ``_int_mm`` on CUDA
+takes K and N multiples of 8 and M > 16: K is padded with zero columns and
+zero weight rows (the stem's 7·7·3 = 147 to 152), M with zero rows to 32
+when it is 16 or less. A shape it still
 refuses raises; nothing falls back to a float conv.
 
 The int8 codes are the reference's exactly (they are computed in numpy
@@ -57,6 +58,11 @@ class IntMatmul:
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         self.launches += 1
+        if a.device.type == "cpu":
+            # oneDNN's int8 product on a CPU without VNNI sums u8·s8 pairs
+            # into saturating int16 and is not exact; a float64 product is
+            # (|Σ| ≤ K·127·128 < 2^53), on any CPU
+            return torch.matmul(a.double(), b.double()).to(torch.int32)
         return torch._int_mm(a, b)
 
 

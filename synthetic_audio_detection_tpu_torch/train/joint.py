@@ -375,8 +375,8 @@ def _head_parallel_norm(mesh: sh.Mesh, is_head: List[bool]):
     def norm(live: List[int], g: List[torch.Tensor]) -> torch.Tensor:
         def squares(ts):
             if not ts:
-                return torch.zeros((), device=g[0].device)
-            return torch.stack(torch._foreach_norm(ts)).square().sum()
+                return torch.zeros((), dtype=torch.float64, device=g[0].device)
+            return torch.stack(steps.tensor_norms(ts)).square().sum()
 
         trunk = squares([t for i, t in zip(live, g) if not is_head[i]])
         heads = squares([t for i, t in zip(live, g) if is_head[i]])

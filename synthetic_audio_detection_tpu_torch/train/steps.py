@@ -172,13 +172,23 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
     return (correct * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
+def tensor_norms(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each tensor's 2-norm, accumulated in float64. torch's float32 2-norm
+    on the CPU adds each vector lane's squares one after another, and over
+    a ResNet-18 layer4 conv's 2.4M gradients it is off by 4e-5 to 1.5e-4
+    relative; optax's global norm, a float32 tree reduction, is within
+    1e-7 of the exact one."""
+    return torch._foreach_norm(ts, 2, dtype=torch.float64)
+
+
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
                          norm: Optional[torch.Tensor] = None) -> None:
     """optax's rule over all the tensors, in place: unchanged when ‖g‖ <
     max, else (g / ‖g‖)·max, with ‖g‖ the norm of them all (``norm``, when
     the caller computes it: a head-parallel step's spans ranks)."""
     if norm is None:
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = torch.linalg.vector_norm(torch.stack(tensor_norms(grads)))
+    norm = norm.float()
     clip = norm >= max_norm
     torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
     torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0))

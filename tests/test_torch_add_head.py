@@ -14,6 +14,7 @@ import flax.linen as fnn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import parity_bounds
 import pytest
 import torch
 
@@ -30,6 +31,7 @@ from synthetic_audio_detection_tpu_torch.ensemble.multihead import (
     build_ensemble,
     ensemble_per_head_logits,
 )
+from synthetic_audio_detection_tpu_torch.models import head as head_module
 from synthetic_audio_detection_tpu_torch.train import add_head
 from synthetic_audio_detection_tpu_torch.utils.config import (
     SpecAugmentConfig,
@@ -37,7 +39,9 @@ from synthetic_audio_detection_tpu_torch.utils.config import (
     TrainConfig,
 )
 from tests.test_torch_joint_trainer import make_tree
-from tests.test_torch_merger import _seeded
+from tests.test_torch_joint import _cross_entropy_keeping_dtype
+from tests.test_torch_merger import _assert_logits_within, _seeded
+from tests.test_torch_train_step import _f64
 
 LR = 1e-5
 SPEC = SpectrogramConfig(out_size=64)
@@ -98,19 +102,35 @@ def _torch_batch(b):
             "weight": torch.from_numpy(b["weight"])}
 
 
+def _step_f64(jadd, trunk, x):
+    """The JAX package's add-head step (make_add_head_step) in float64 from
+    ``jadd``'s state on the model input ``x``: a float64 head, trunk, state
+    and batch, the cross-entropy in the logits' dtype (JAX's fixes
+    float32). → (state, metrics)."""
+    b = _batch()
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(JS, "_features_from_waveforms", lambda *a, **kw: jnp.asarray(x, jnp.float64))
+        mp.setattr(JS, "cross_entropy", _cross_entropy_keeping_dtype)
+        step = jax.jit(JA.make_add_head_step(jadd.model_name, jadd.tx, jadd.spec_cfg,
+                                             jadd.augment, dtype=jnp.float64))
+        new, m = step(_f64(jadd.state), _f64(trunk), dict(b, weight=b["weight"].astype(np.float64)),
+                      jax.random.PRNGKey(0))
+        return jax.tree_util.tree_map(np.asarray, (new, m))
+
+
 def _head_sd(params, stats):
     sd = torch_state_dict_from_variables(jax.tree_util.tree_map(
         np.asarray, {"params": {"head": params}, "batch_stats": {"head": stats}}))
     return {k[len("head."):]: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
-def test_step_and_eval_match_jax(artifact, monkeypatch):
-    """From JAX's initial head: one step (trunk frozen in eval mode, the
-    head in train mode, clip and AdamW at cfg.lr) on the same model input,
-    within the float32 bounds of tests/test_torch_train_step.py, the trunk
-    bit-identical after it; the eval step under mel_dft='pallas' (the
-    kernel's plain version here, JAX's Pallas kernel in interpret mode)
-    counts the same correct rows."""
+def _one_step(artifact, monkeypatch):
+    """Both packages' HeadAdder from the artifact with JAX's initial head,
+    and one step each, and JAX's in float64, on the same model input (JAX's
+    GEMM-mel features: the two kernels' log-mels differ by up to 1e-3, the
+    float32 bounds are tighter); the step's logits in each. → (adder, jadd,
+    trunk, trunk_before, (pm, jm, tm), (js, truth), (port, JAX float32,
+    JAX float64 logits))."""
     monkeypatch.setattr(fnn, "Dropout", _NoDropout)
     jcfg = JCfg(batch_size=2, lr=LR, mel_dft="pallas")
     jens = JSer.load_merged(artifact)
@@ -128,38 +148,105 @@ def test_step_and_eval_match_jax(artifact, monkeypatch):
     trunk_before = {k: v.clone() for k, v in adder.trunk.state_dict().items()}
 
     trunk = jax.device_put(jadd.trunk)
-    # the step on the same model input (JAX's GEMM-mel features: the two
-    # kernels' log-mels differ by up to 1e-3, the float32 bounds are tighter)
     x = np.array(JS._features_from_waveforms(jnp.asarray(_batch()["audio"]), JSpec(out_size=64),
                                              None, None, 32_000))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(JS, "_features_from_waveforms", lambda *a, **kw: jnp.asarray(x))
         mp.setattr(add_head.steps, "features_from_waveforms",
                    lambda *a, **kw: torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+        truth, tm = _step_f64(jadd, trunk, x)
+        logits = [_jax_logits(jadd, trunk, x, dt) for dt in (jnp.float32, jnp.float64)]
         js, jm = jadd._step(jadd.state, trunk, _batch(), jax.random.PRNGKey(0))
+        ce = add_head.steps.cross_entropy
+        mp.setattr(add_head.steps, "cross_entropy", lambda out, *a, **kw: (
+            logits.insert(0, out.detach().double().numpy()), ce(out, *a, **kw))[1])
         pm = adder._step(adder.state, adder.trunk, _torch_batch(_batch()), torch.Generator())
-    assert float(pm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
-    assert float(pm["accuracy"]) == float(jm["accuracy"])
-    assert int(adder.state.count) == 1 and int(js.step) == 1
-    want = _head_sd(js.params, js.batch_stats)
-    _, mu, nu = JS.extract_adam_state(js.opt_state)
-    mu, nu = _head_sd(mu, {}), _head_sd(nu, {})
-    pmu, pnu = adder.state.moments()
-    # a tensor whose gradient is rounding noise (a Linear's bias before a
-    # BatchNorm) takes 1e-2 of the head's largest moment as its scale
-    top = {id(m): max(float(v.abs().max()) for v in m.values()) for m in (mu, nu)}
+    return adder, jadd, trunk, trunk_before, (pm, jm, tm), (js, truth), logits
+
+
+def _jax_logits(jadd, trunk, x, dtype):
+    """The logits of JAX's add-head step on ``x``, in ``dtype``: the frozen
+    trunk in eval mode, the head in train mode (make_add_head_step's
+    forward), from ``jadd``'s state."""
+    from synthetic_audio_detection_tpu.models.head import BinaryHead
+    from synthetic_audio_detection_tpu.models.resnet import create_resnet
+
+    with jax.enable_x64(dtype == jnp.float64):
+        cast = _f64 if dtype == jnp.float64 else (lambda t: t)
+        feats = create_resnet(jadd.model_name, 3, dtype, module_name="base").apply(
+            cast({"params": trunk["params"], "batch_stats": trunk["batch_stats"]}),
+            jnp.asarray(x, dtype), train=False)
+        out, _ = BinaryHead(dtype=dtype).apply(
+            cast({"params": jadd.state.params, "batch_stats": jadd.state.batch_stats}), feats,
+            train=True, mutable=["batch_stats"])
+        return np.asarray(out, np.float64)
+
+
+def _assert_forward_within(logits, pm, tm):
+    """The port's logits against JAX's float64 forward, within
+    parity_bounds.reference_error_bound of JAX's float32 forward's error
+    on them, and its loss against JAX's float64 step (``tm``) within what
+    its logits' own error explains (parity_bounds.assert_loss_within)."""
+    port, ref, truth = logits
+    parity_bounds.assert_within_reference(port, ref, truth, float(np.abs(truth).max()),
+                                          err_msg="logits")
+    parity_bounds.assert_loss_within(float(pm["loss"]), float(tm["loss"]), port, truth)
+
+
+def _assert_moments(adder, js, truth):
+    """The head's Adam moments against JAX's step in float64
+    (parity_bounds.assert_moments_within). → JAX's float32 μ by name."""
+    mu, nu, true_mu, true_nu = (_head_sd(m, {}) for state in (js, truth)
+                                for m in JS.extract_adam_state(state.opt_state)[1:])
+    parity_bounds.assert_moments_within(adder.state.moments(), (mu, nu), (true_mu, true_nu))
+    return mu
+
+
+def _assert_running_stats(adder, js, truth):
+    """The head's train-mode BatchNorm statistics (flax's E[x²] − E[x]²)
+    against JAX's step in float64, within reference_error_bound of JAX's
+    float32 step's error on them."""
+    want, true_sd = _head_sd(js.params, js.batch_stats), _head_sd(truth.params, truth.batch_stats)
+    got_sd = adder.state.model.state_dict()
     for k, w in want.items():
-        got = head.state_dict()[k]
         if "running" in k:
-            torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
+            t = true_sd[k].double().numpy()
+            parity_bounds.assert_within_reference(got_sd[k].numpy(), w.numpy(), t,
+                                                  float(np.abs(t).max()), err_msg=k)
+
+
+def _assert_params(adder, js, mu):
+    """The head's parameters against JAX's float32 step: 1e-5 relative +
+    1e-6 where the AdamW step is well conditioned (|μ| / 0.1 = |g| > 1e-6),
+    else within the most a step moves them, 2·lr."""
+    got_sd = adder.state.model.state_dict()
+    for k, w in _head_sd(js.params, js.batch_stats).items():
+        if "running" in k:
             continue
-        for a, b, m in ((pmu[k], mu[k], mu), (pnu[k], nu[k], nu)):
-            scale = max(float(b.abs().max()), 1e-2 * top[id(m)])
-            assert bool(((a - b).abs() <= 3e-4 * b.abs() + 3e-4 * scale).all()), k
         well = mu[k].abs() / 0.1 > 1e-6
-        d = (got - w).abs()
+        d = (got_sd[k] - w).abs()
         assert bool((d[well] <= 1e-5 * w[well].abs() + 1e-6).all()), k
         assert bool((d <= 2 * LR + 1e-6).all()), k
+
+
+def test_step_and_eval_match_jax(artifact, monkeypatch):
+    """From JAX's initial head: one step (trunk frozen in eval mode, the
+    head in train mode, clip and AdamW at cfg.lr) on the same model input,
+    within the float32 bounds of tests/test_torch_train_step.py (the
+    logits, the loss, the Adam moments and the BN statistics against JAX's
+    step in float64, within parity_bounds.reference_error_bound of JAX's
+    own float32 error), the trunk
+    bit-identical after it; the eval step under mel_dft='pallas' (the
+    kernel's plain version here, JAX's Pallas kernel in interpret mode)
+    counts the same correct rows."""
+    adder, jadd, trunk, trunk_before, (pm, jm, tm), (js, truth), logits = _one_step(
+        artifact, monkeypatch)
+    head = adder.state.model
+    _assert_forward_within(logits, pm, tm)
+    assert float(pm["accuracy"]) == float(jm["accuracy"])
+    assert int(adder.state.count) == 1 and int(js.step) == 1
+    _assert_params(adder, js, _assert_moments(adder, js, truth))
+    _assert_running_stats(adder, js, truth)
     assert all(torch.equal(v, trunk_before[k]) for k, v in adder.trunk.state_dict().items())
 
     b = _batch(3)
@@ -225,7 +312,61 @@ def test_splice_keeps_existing_heads_and_the_generic_head_last(caplog):
         add_head.splice_head(ens, "SynA", new_head)
 
 
-def test_splice_matches_jax(tmp_path):
+def test_loss_bound_rejects_zero_rows_in_the_denominator(artifact, monkeypatch):
+    """The row weighted 0 counted in the cross-entropy's denominator (the
+    loss at 3/4 of itself): the float64-derived bound rejects it, as the
+    fixed 1e-5 against JAX's float32 step did."""
+    ce = add_head.steps.cross_entropy
+    monkeypatch.setattr(add_head.steps, "cross_entropy",
+                        lambda out, labels, weights=None, total=None: ce(
+                            out, labels, weights, torch.tensor(float(labels.shape[0]))))
+    _, _, _, _, (pm, jm, tm), _, logits = _one_step(artifact, monkeypatch)
+    with pytest.raises(AssertionError, match="loss"):
+        _assert_forward_within(logits, pm, tm)
+    assert abs(float(pm["loss"]) - float(jm["loss"])) > 1e-5 * abs(float(jm["loss"]))
+
+
+def test_logit_check_rejects_a_head_bn_eps_of_1e_3(artifact, monkeypatch):
+    """The head's BatchNorm eps at 1e-3 in place of 1e-5: the logits' check
+    against JAX's forward in float64 rejects it."""
+    monkeypatch.setattr(head_module, "BN_EPS", 1e-3)
+    _, _, _, _, (pm, _, tm), _, logits = _one_step(artifact, monkeypatch)
+    with pytest.raises(AssertionError, match="logits"):
+        _assert_forward_within(logits, pm, tm)
+
+
+def test_running_stats_check_rejects_a_bn_momentum_of_0_99(artifact, monkeypatch):
+    """The head's BatchNorm keeping 0.99 of its running statistics a step in
+    place of 0.9: the forward and so the gradients, moments and parameters
+    do not change, and only the running statistics' check rejects it."""
+    monkeypatch.setattr(head_module, "BN_MOMENTUM", 0.99)
+    adder, _, _, _, (pm, _, tm), (js, truth), logits = _one_step(artifact, monkeypatch)
+    assert all(m.momentum == pytest.approx(0.01) for m in adder.state.model.modules()
+               if isinstance(m, torch.nn.BatchNorm1d))
+    _assert_forward_within(logits, pm, tm)
+    _assert_params(adder, js, _assert_moments(adder, js, truth))
+    with pytest.raises(AssertionError, match="running"):
+        _assert_running_stats(adder, js, truth)
+
+
+def test_moment_check_rejects_adam_b2_of_0_99899(artifact, monkeypatch):
+    """Adam's b2 at 0.99899 in place of 0.999: ν one percent high after the
+    first step, whose bias correction 1 − b2 cancels it in the update, so
+    the parameters and BN statistics do not change, and only the moments'
+    check rejects it (as the fixed 3e-4 against JAX's float32 step did)."""
+    monkeypatch.setattr(add_head.steps, "B2", 0.99899)
+    adder, _, _, _, (pm, _, tm), (js, truth), logits = _one_step(artifact, monkeypatch)
+    _assert_forward_within(logits, pm, tm)
+    _assert_running_stats(adder, js, truth)
+    mu = _head_sd(JS.extract_adam_state(js.opt_state)[1], {})
+    _assert_params(adder, js, mu)
+    with pytest.raises(AssertionError):
+        _assert_moments(adder, js, truth)
+
+
+def _splice_both(tmp_path):
+    """The same head spliced into a shared-backbone artifact with a generic
+    head by each package: → (the port's ensemble, JAX's), checked equal."""
     ens = build_ensemble(_shared_sds(2, generic=True), ["SynA", "SynB", "Real"],
                          generic_head=True)
     path = str(tmp_path / "gen.ckpt")
@@ -246,10 +387,35 @@ def test_splice_matches_jax(tmp_path):
     for a, b in zip(got.classifier_state_dicts(), want.classifier_state_dicts()):
         assert a.keys() == b.keys()
         assert all(torch.equal(a[k], b[k]) for k in a if not k.endswith("num_batches_tracked"))
-    x = jnp.asarray(np.random.default_rng(2).standard_normal((2, 64, 64, 3)), jnp.float32)
-    np.testing.assert_allclose(
-        got(torch.from_numpy(np.asarray(x)).permute(0, 3, 1, 2)).numpy(),
-        np.asarray(JE.ensemble_forward(jgrown, x)), atol=1e-4, rtol=0)
+    return got, jgrown
+
+
+def test_splice_matches_jax(tmp_path):
+    """The spliced ensemble equals JAX's splice, and its logits hold to
+    JAX's forward in float64 (tests/test_torch_merger.py's bound): the
+    ensemble's weights come from torch's seeded init, whose last bits
+    follow the CPU's instruction set, and a fixed 1e-4 against JAX's
+    float32 forward held them to one CPU's rounding."""
+    got, jgrown = _splice_both(tmp_path)
+    _assert_logits_within(got, jgrown, _splice_input())
+
+
+def test_splice_logit_check_rejects_a_batchnorm_eps_of_1e_3(tmp_path):
+    """Every BatchNorm's eps at 1e-3 in place of 1e-5 in the port's spliced
+    ensemble: its logits' check rejects it, as the fixed 1e-4 did."""
+    got, jgrown = _splice_both(tmp_path)
+    for m in got.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.eps = 1e-3
+    with pytest.raises(AssertionError, match="logits"):
+        _assert_logits_within(got, jgrown, _splice_input())
+    want = np.asarray(JE.ensemble_forward(jgrown, jnp.asarray(_splice_input())))
+    got = got(torch.from_numpy(_splice_input()).permute(0, 3, 1, 2)).detach().numpy()
+    assert np.abs(got - want).max() > 1e-4
+
+
+def _splice_input():
+    return np.random.default_rng(2).standard_normal((2, 64, 64, 3)).astype(np.float32)
 
 
 def test_refuses_artifacts_without_a_shared_backbone():

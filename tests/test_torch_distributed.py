@@ -14,8 +14,11 @@ near-zero entry into ±lr.
 
 Tolerances, against either reference: the loss 5e-5 relative; BN running
 statistics 1e-5 relative + 1e-5 (tests/test_torch_train_step.py's);
-parameters 1e-5 relative + 1e-5 (1% of the lr: the step moves an element
-by lr·g / (|g| + eps), so a gradient error δ by at most lr·δ / eps); the Adam moments 1e-3 relative + 1e-3 of the tensor's
+parameters within twice what the gradients' difference explains
+(_param_bound: the first step moves an element by lr·g / (|g| + eps), so
+a gradient difference δ moves it by at most lr·eps·δ / (|g| + eps)², |g|
+the smallest on the way; g is μ / (1 − b1) on either side); the Adam
+moments 1e-3 relative + 1e-3 of the tensor's
 scale (at least 1e-2 of the model's largest). Ranked against one process,
 only the reduction order differs (the BatchNorm sums, the gradients summed
 over the ranks), but this tiny network amplifies rounding a thousandfold
@@ -35,6 +38,7 @@ import shutil
 import jax
 import numpy as np
 import optax
+import parity_bounds
 import pytest
 import torch
 
@@ -177,7 +181,34 @@ def _assert_close(got, sd, mu, nu, loss):
             d = np.abs(got[part][k].numpy() - want)
             assert np.all(d <= 1e-3 * np.abs(want) + 1e-3 * scale), (part, k)
     for k, want in sd.items():
-        np.testing.assert_allclose(got["sd"][k].numpy(), want, rtol=1e-5, atol=1e-5, err_msg=k)
+        if k in mu:
+            parity_bounds.assert_within(got["sd"][k].numpy(), want,
+                                        _param_bound(got["mu"][k].numpy(), mu[k], want), k)
+        else:
+            np.testing.assert_allclose(got["sd"][k].numpy(), want, rtol=1e-5, atol=1e-5,
+                                       err_msg=k)
+
+
+def _param_bound(mu_got, mu_want, p):
+    """How far two first AdamW steps from the same parameter ``p`` may lie
+    apart given their first moments: the step's update is
+    g / (√ν̂ + eps) = g / (|g| + eps) with g = μ / (1 − b1), whose slope
+    eps / (|g| + eps)² is largest where |g| is smallest, so the two
+    parameters differ by at most lr·eps·|Δg| / (m + eps)², m the smaller
+    |g| of the two (0 where their signs differ). That bound is met to
+    first order wherever Δg is small against |g| + eps, so it is taken
+    twice, to hold a consistent pair at half of it. The update's own float32
+    rounding (the bias corrections, the square root, the division, the
+    decay and the product with lr) is within 8u of lr. Each side's
+    parameter is then its own update rounded to float32, so where the
+    updates agree to within that the two may still land an ulp apart, on
+    either side of a rounding boundary: two ulps of ``p`` hold such a pair
+    at half the bound."""
+    g_got, g_want = (np.asarray(m, np.float64) / (1.0 - 0.9) for m in (mu_got, mu_want))
+    m = np.where(np.sign(g_got) == np.sign(g_want), np.minimum(np.abs(g_got), np.abs(g_want)), 0)
+    ulp = np.spacing(np.abs(np.asarray(p, np.float32))).astype(np.float64)
+    first = LR * EPS * np.abs(g_got - g_want) / (m + EPS) ** 2
+    return 2 * first + 8 * parity_bounds.U * LR + 2 * ulp
 
 
 def _assert_matches_jax(got, jax_after, jax_m, named):
@@ -225,6 +256,21 @@ def test_data_parallel_step_draws_the_global_batchs_augmentation(jax_steps, tmp_
     _assert_matches_one_process(ranks[0], one)
     off = td.submodel_step(dict(inp, seed=inp["seed"] + 1))
     assert abs(off["loss"] - one["loss"]) > 1e-6  # the draws do move the step
+
+
+def test_parameter_bound_rejects_eps_inside_the_square_root(jax_steps, monkeypatch):
+    """Adam's eps inside the square root in the port's one-process step:
+    the moments do not change and hold to their bound; the parameters'
+    bound rejects the update."""
+    from tests.test_torch_train_step import _adamw_eps_inside_the_square_root
+
+    state, after, m = jax_steps["submodel"]
+    monkeypatch.setattr(td.steps, "adamw_update_", _adamw_eps_inside_the_square_root)
+    one = td.submodel_step(_inputs(_submodel_sd(state)))
+    named = lambda t: {k: np.asarray(v)  # noqa: E731
+                       for k, v in torch_state_dict_from_variables(t).items()}
+    with pytest.raises(AssertionError, match="beyond the bound"):
+        _assert_matches_jax(one, after, m, named)
 
 
 def test_head_parallel_joint_step_is_the_one_process_step(jax_steps, tmp_path):

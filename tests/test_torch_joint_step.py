@@ -6,6 +6,7 @@ initial state: the sizes, helpers and tolerances of tests/test_torch_joint.py
 import jax
 import jax.numpy as jnp
 import numpy as np
+import parity_bounds
 import pytest
 import torch
 
@@ -17,6 +18,7 @@ from synthetic_audio_detection_tpu_torch.train import joint
 from synthetic_audio_detection_tpu_torch.train import steps as TS
 from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
 from tests.test_torch_joint import (  # noqa: F401  (no_dropout and _two_threads are fixtures)
+    _cross_entropy_keeping_dtype,
     CASE_IDS,
     CASES,
     INPUT,
@@ -33,24 +35,60 @@ from tests.test_torch_joint import (  # noqa: F401  (no_dropout and _two_threads
     no_dropout,
     port_state,
 )
+from tests.test_torch_train_step import _f64
 
 
-def assert_matches_jax(port, js, moments=True, n_steps=1):
-    """tests/test_torch_train_step.py's float32 bounds, by joint-model name:
-    parameters and BN statistics, and with ``moments`` the Adam moments
-    (otherwise only which tensors have none)."""
+def _step_f64(case, js, x):
+    """make_joint_train_step in float64 from the float32 state ``js`` on the
+    model input ``x``: a float64 model, state and batch, the cross-entropy
+    in the logits' dtype (JAX's fixes float32). → (state, metrics)."""
+    k, hard, generic = case
+    b = _batch()
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(JS, "_features_from_waveforms", lambda *a, **kw: jnp.asarray(x, jnp.float64))
+        mp.setattr(JS, "cross_entropy", _cross_entropy_keeping_dtype)
+        new, m = _jax_step(k, hard, generic, dtype=jnp.float64)(
+            _f64(js), dict(b, weight=b["weight"].astype(np.float64)), jax.random.PRNGKey(2))
+        return _np(new), _np(m)
+
+
+def _model_input(monkeypatch):
+    """JAX's features of the batch, fed to both packages' steps."""
+    x = np.array(JS._features_from_waveforms(jnp.asarray(_batch()["audio"]),
+                                               JSpec(out_size=INPUT), None, None, 32_000))
+    monkeypatch.setattr(JS, "_features_from_waveforms", lambda *a, **kw: jnp.asarray(x))
+    monkeypatch.setattr(TS, "features_from_waveforms",
+                        lambda *a, **kw: torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    return x
+
+
+def _assert_losses_within(pm, jm, tm):
+    """The port's per-head losses and loss against JAX's float64 step
+    (``tm``), within parity_bounds.reference_error_bound of JAX's float32
+    step's (``jm``) error on them."""
+    losses = lambda m: np.append(np.asarray(m["per_head_loss"]), float(m["loss"]))  # noqa: E731
+    parity_bounds.assert_within_reference(losses(pm), losses(jm), losses(tm),
+                                          float(np.abs(losses(tm)).max()), err_msg="losses")
+
+
+def assert_matches_jax(port, js, truth=None, n_steps=1):
+    """tests/test_torch_train_step.py's bounds, by joint-model name:
+    parameters and BN statistics against JAX's float32 step ``js``, and
+    with ``truth`` (JAX's step in float64 from the same state) the Adam
+    moments within parity_bounds.reference_error_bound (otherwise only which
+    tensors have none)."""
     jv = TSer.joint_named(_np({"params": js.params, "batch_stats": js.batch_stats}))
     count, mu, nu = JS.extract_adam_state(js.opt_state)
     mu, nu = (TSer.joint_named({"params": _np(t)}) for t in (mu, nu))
     assert int(port.count) == count and int(port.step) == int(js.step)
     pmu, pnu = port.moments()
-    top = {id(m): max(float(np.abs(v).max()) for v in m.values()) for m in (mu, nu)}
     for key in mu:
-        for got, want, m in ((pmu[key].numpy(), mu[key], mu), (pnu[key].numpy(), nu[key], nu)):
-            assert got.any() == want.any(), key
-            if moments:
-                scale = max(float(np.abs(want).max()), 1e-2 * top[id(m)])
-                assert np.all(np.abs(got - want) <= 3e-4 * np.abs(want) + 3e-4 * scale), key
+        for got, want in ((pmu[key], mu[key]), (pnu[key], nu[key])):
+            assert got.numpy().any() == want.any(), key
+    if truth is not None:
+        _, tmu, tnu = JS.extract_adam_state(truth.opt_state)
+        parity_bounds.assert_moments_within(
+            (pmu, pnu), (mu, nu), tuple(TSer.joint_named({"params": _np(t)}) for t in (tmu, tnu)))
     got_sd = _named(port)
     assert set(got_sd) == set(jv)
     for key, want in jv.items():
@@ -70,28 +108,25 @@ def test_joint_step_matches_jax(case, no_dropout, monkeypatch):
     features of the batch, fed to both steps: the two packages' float32
     features differ by about 2e-6, which this tiny network amplifies past
     the bounds; the features are held to JAX's in
-    tests/test_torch_train_step.py): loss and per-head losses to 1e-5
-    relative, accuracies equal, the state within the bounds. Heads move,
+    tests/test_torch_train_step.py): the per-head losses, the loss and the
+    Adam moments against JAX's step in float64 from the same state, within
+    parity_bounds.reference_error_bound of JAX's own float32 error; the
+    accuracies equal, parameters and BN statistics within the bounds. Heads move,
     the frozen trunk does not (its BN statistics do); with K = 2 the
     tails' layer3, trainable with a zero gradient, moves by AdamW's decay
     alone, to JAX's bits."""
-    x = np.array(JS._features_from_waveforms(jnp.asarray(_batch()["audio"]),
-                                               JSpec(out_size=INPUT), None, None, 32_000))
-    monkeypatch.setattr(JS, "_features_from_waveforms", lambda *a, **kw: jnp.asarray(x))
-    monkeypatch.setattr(TS, "features_from_waveforms",
-                        lambda *a, **kw: torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    x = _model_input(monkeypatch)
     k, hard, generic = case
     js = jax_state(k)
     new_js, jm = _jax_step(k, hard, generic)(js, _batch(), jax.random.PRNGKey(2))
     port = port_state(js, k)
     before = _named(port)
     pm = _port_step(k, hard, generic)(port, _torch_batch(_batch()), torch.Generator())
-    assert float(pm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
-    np.testing.assert_allclose(pm["per_head_loss"].numpy(), np.asarray(jm["per_head_loss"]),
-                               rtol=1e-5)
+    truth, tm = _step_f64(case, js, x)
+    _assert_losses_within(pm, jm, tm)
     np.testing.assert_allclose(pm["per_head_accuracy"].numpy(),
                                np.asarray(jm["per_head_accuracy"]), rtol=1e-6)
-    assert_matches_jax(port, new_js)
+    assert_matches_jax(port, new_js, truth)
     after = _named(port)
     moved = {n for n in after if not np.array_equal(after[n], before[n])}
     assert {n for n in after if n.startswith("heads.") and ".tail.layer3." not in n} <= moved
@@ -106,6 +141,43 @@ def test_joint_step_matches_jax(case, no_dropout, monkeypatch):
     for n in tail3:
         np.testing.assert_array_equal(after[n], jv[n], err_msg=n)
         assert not pmu[n].any()
+
+
+def test_loss_bound_rejects_zero_rows_in_the_denominator(no_dropout, monkeypatch):
+    """The rows weighted 0 counted in each head's cross-entropy
+    denominator (the loss at 5/6 of itself): the float64-derived bound
+    rejects it, as the fixed 1e-5 against JAX's float32 step did."""
+    x = _model_input(monkeypatch)
+    case = CASES[0]
+    js = jax_state(case[0])
+    _, jm = _jax_step(*case)(js, _batch(), jax.random.PRNGKey(2))
+    _, tm = _step_f64(case, js, x)
+    ce = TS.cross_entropy
+    monkeypatch.setattr(TS, "cross_entropy", lambda out, labels, weights=None, total=None: ce(
+        out, labels, weights, torch.tensor(float(labels.shape[0]))))
+    pm = _port_step(*case)(port_state(js, case[0]), _torch_batch(_batch()), torch.Generator())
+    with pytest.raises(AssertionError, match="losses"):
+        _assert_losses_within(pm, jm, tm)
+    assert abs(float(pm["loss"]) - float(jm["loss"])) > 1e-5 * abs(float(jm["loss"]))
+
+
+def test_moment_check_rejects_adam_b2_of_0_99899(no_dropout, monkeypatch):
+    """Adam's b2 at 0.99899 in place of 0.999: ν one percent high after the
+    first step, whose bias correction 1 − b2 cancels it in the update, so
+    the parameters and BN statistics hold to their bounds, and only the
+    moments' check against the float64 step rejects it (as the fixed 3e-4
+    against JAX's float32 step did)."""
+    x = _model_input(monkeypatch)
+    case = CASES[0]
+    js = jax_state(case[0])
+    new_js, _ = _jax_step(*case)(js, _batch(), jax.random.PRNGKey(2))
+    truth, _ = _step_f64(case, js, x)
+    monkeypatch.setattr(TS, "B2", 0.99899)
+    port = port_state(js, case[0])
+    _port_step(*case)(port, _torch_batch(_batch()), torch.Generator())
+    assert_matches_jax(port, new_js)
+    with pytest.raises(AssertionError):
+        assert_matches_jax(port, new_js, truth)
 
 
 @pytest.fixture(scope="module")

@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import jax.numpy as jnp
+import parity_bounds
 import pytest
 import scipy.ndimage
 import torch
@@ -104,28 +105,161 @@ def test_plain_factored_f32_matches_gemm_front_end(waves):
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("signal", ["tone", "chirp", "white"])
+SIGNALS = ("tone", "chirp", "white")
+
+
+def _signal(name):
+    t = np.arange(128_000) / 32_000
+    x = {"tone": 0.3 * np.sin(2 * np.pi * 1000 * t),
+         "chirp": 0.3 * np.sin(2 * np.pi * (100 * t + 7900 * t ** 2 / 8)),
+         "white": 0.3 * np.random.default_rng(12).standard_normal(t.size)}[name]
+    return x.astype(np.float32)[None]
+
+
+def _plain_bf16(x):
+    """The port's plain bf16 log-mel of ``x``: (dB plane, z-scores)."""
+    x = torch.from_numpy(x)
+    return tuple(TM.log_mel_factored(x, CFG, standardize=std, dft_dtype=torch.bfloat16).numpy()
+                 for std in (False, True))
+
+
+# Where a cell lies within 54 dB of its window's peak (above the bf16
+# design's floor), its power is not what is left after the DFT's sums
+# cancel: there the port is held to the float64 truth at the numbers it was
+# held to the reference kernel before (1e-4 z, and 1e-3 dB as
+# test_plain_factored_bf16_matches_pallas_kernel holds the dB plane), which
+# no CPU's float32 order comes near: the port lies within 5e-6 z and 6e-5
+# dB of the truth there on all three signals, the reference kernel within
+# 4e-5 z. The any-order float32 bound of parity_bounds.log_mel_truth is
+# loose there (up to 0.075 z within 54 dB: γ_{hop+16} of the DFT's
+# Σ|products|, which dwarf a cell 54 dB down) and governs alone below.
+SIGNAL_DEPTH_DB = 54.0
+SIGNAL_Z, SIGNAL_DB = 1e-4, 1e-3
+
+
+def _signal_cells(truth):
+    """The cells within SIGNAL_DEPTH_DB of their window's peak."""
+    return truth.db.max(axis=(1, 2), keepdims=True) - truth.db <= SIGNAL_DEPTH_DB
+
+
+def _assert_within_float32_bound(truth, db, z, name):
+    parity_bounds.assert_within(db, truth.db, truth.db_bound, f"{name} dB")
+    parity_bounds.assert_within(z, *truth.standardized(db), f"{name} z")
+
+
+def _assert_port_within(truth, db, z):
+    """The port's plain result within the float32 bound everywhere, and
+    within SIGNAL_Z / SIGNAL_DB of the truth on the signal's cells."""
+    _assert_within_float32_bound(truth, db, z, "port")
+    near = _signal_cells(truth)
+    parity_bounds.assert_within(db[near], truth.db[near], SIGNAL_DB, "port dB near the peak")
+    parity_bounds.assert_within(z[near], truth.z[near], SIGNAL_Z, "port z near the peak")
+
+
+@pytest.mark.parametrize("signal", SIGNALS)
 def test_bf16_dft_floor_is_the_reference_kernels(signal):
     """bf16 DFT operands put a rounding floor about 54 dB below a window's
     peak, inside the 80-dB clamp. Where most of the mel plane lies below
     that floor (tones, chirps) bf16 and float32 z-scores differ by O(1);
     on broadband noise they agree to the reference's 0.15 bound. The port
-    reproduces the reference kernel here too (1e-4 against Pallas), so this
-    is the reference design's numerics, not a port drift."""
-    t = np.arange(128_000) / 32_000
-    x = {"tone": 0.3 * np.sin(2 * np.pi * 1000 * t),
-         "chirp": 0.3 * np.sin(2 * np.pi * (100 * t + 7900 * t ** 2 / 8)),
-         "white": 0.3 * np.random.default_rng(12).standard_normal(t.size)}[signal]
-    x = x.astype(np.float32)[None]
-    bf16 = TM.log_mel_factored(torch.from_numpy(x), CFG, dft_dtype=torch.bfloat16).numpy()
-    ref = np.asarray(fused_log_mel_factored(jnp.asarray(x), CFG, interpret=True))
-    np.testing.assert_allclose(bf16, ref, rtol=0, atol=1e-4)
+    reproduces the reference kernel here too, so this is the reference
+    design's numerics, not a port drift.
+
+    Both are held, cell by cell, to the float64 evaluation of the one
+    function they compute on the same bf16 operands, within the rounding
+    that function's float32 sums allow in any order
+    (parity_bounds.log_mel_truth: γ_{hop+16}·Σ|products| for the DFT,
+    carried through |X|², the mel sum, 10·log10, the clamp and the
+    standardize), on the dB plane and on z-scores, and so each other
+    within the sum of their bounds; the port, on the cells within 54 dB
+    of the peak, within SIGNAL_Z and SIGNAL_DB of the truth as well. Far
+    below the peak a cell's power is what is left after the DFT's sums
+    cancel, and the order in which float32 adds the exact bf16 products
+    decides its last digits: the order differs with the CPU's instruction
+    set, so a fixed 1e-4 against the reference there held the port to one
+    CPU's rounding."""
+    x = _signal(signal)
+    truth = parity_bounds.log_mel_truth(x, CFG)
+    port = _plain_bf16(x)
+    ref = tuple(np.asarray(fused_log_mel_factored(jnp.asarray(x), CFG, interpret=True,
+                                                  standardize=std)) for std in (False, True))
+    _assert_port_within(truth, *port)
+    _assert_within_float32_bound(truth, *ref, "reference")
+    bf16 = port[1]
     exact = TM.log_mel_factored(torch.from_numpy(x), CFG, dft_dtype=torch.float32).numpy()
     deviation = float(np.abs(bf16 - exact).max())
     if signal == "white":
         assert deviation < 0.15
     else:
         assert deviation > 0.5
+
+
+@pytest.mark.parametrize("signal", SIGNALS)
+def test_log_mel_float32_bound_holds_and_stays_narrow(signal):
+    """The check both ways: the port's plain result passes it, and what it
+    allows the port's z-scores is below 1e-3 on every cell within 54 dB of
+    the window's peak, so that the derived bound governs alone only below
+    that. The derived bound itself: near a window's peak a DFT sum's
+    float32 bound is γ_{hop+16} ≈ 3e-5 of its terms' magnitudes, and the
+    window's mean and σ add at most γ̃_N of theirs; it widens with depth as
+    the cell's power falls below those magnitudes, and reaches the clamp
+    interval only below the float32 floor. On the tone and the chirp (dB
+    σ ≈ 12) it is below 1e-3 z on every cell within 10 dB of the peak; on
+    white noise, whose DFT terms cancel more and whose dB σ is 2.7, below
+    1e-2."""
+    x = _signal(signal)
+    truth = parity_bounds.log_mel_truth(x, CFG)
+    db, z = _plain_bf16(x)
+    _assert_port_within(truth, db, z)
+    bound = truth.standardized(db)[1]
+    near = _signal_cells(truth)
+    allowed = np.where(near, np.minimum(bound, SIGNAL_Z), bound)
+    assert float(allowed[near].max()) < 1e-3
+    depth = truth.db.max(axis=(1, 2), keepdims=True) - truth.db
+    assert float(bound[depth <= 10].max()) < (1e-2 if signal == "white" else 1e-3)
+
+
+def test_log_mel_bound_rejects_a_79_db_clamp(monkeypatch):
+    """A top-dB clamp at 79 dB in place of 80, on the chirp (30% of its
+    cells clamped): the derived bound rejects it on the dB plane and on
+    z-scores, as the fixed 1e-4 against the reference kernel did."""
+    x = _signal("chirp")
+    truth = parity_bounds.log_mel_truth(x, CFG)
+    ref = np.asarray(fused_log_mel_factored(jnp.asarray(x), CFG, interpret=True))
+    to_db = TM.amplitude_to_db
+    monkeypatch.setattr(TM, "amplitude_to_db", lambda p, top_db=80.0: to_db(p, top_db - 1.0))
+    db, z = _plain_bf16(x)
+    with pytest.raises(AssertionError):
+        parity_bounds.assert_within(db, truth.db, truth.db_bound)
+    with pytest.raises(AssertionError):
+        parity_bounds.assert_within(z, *truth.standardized(db))
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(z, ref, rtol=0, atol=1e-4)
+
+
+def test_log_mel_check_rejects_one_mel_filter_scaled_by_1e_3(monkeypatch):
+    """One mel filter's weights scaled by 1 + 1e-3, on the tone: that mel
+    bin's dB 4.3e-3 higher, its z-scores 3.6e-4. The any-order float32
+    bound lets it through (at 0.05 of itself); the check near the peak
+    rejects it on the dB plane and on z-scores, as the fixed 1e-4 against
+    the reference kernel did."""
+    x = _signal("tone")
+    truth = parity_bounds.log_mel_truth(x, CFG)
+    ref = np.asarray(fused_log_mel_factored(jnp.asarray(x), CFG, interpret=True))
+    filterbank = TM.config_filterbank
+
+    def drifted(cfg, sample_rate):
+        fb = filterbank(cfg, sample_rate).copy()
+        fb[:, 64] *= 1 + 1e-3
+        return fb
+
+    monkeypatch.setattr(TM, "config_filterbank", drifted)
+    db, z = _plain_bf16(x)
+    _assert_within_float32_bound(truth, db, z, "port")
+    with pytest.raises(AssertionError, match="near the peak"):
+        _assert_port_within(truth, db, z)
+    with pytest.raises(AssertionError):
+        np.testing.assert_allclose(z, ref, rtol=0, atol=1e-4)
 
 
 def test_wrapper_uses_plain_version_on_cpu_and_counts_nothing(waves):

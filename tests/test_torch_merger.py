@@ -12,8 +12,12 @@ import logging
 import os
 import shutil
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import parity_bounds
 import pytest
 import torch
 
@@ -23,6 +27,7 @@ from synthetic_audio_detection_tpu_torch.checkpoints import serialization as TSe
 from synthetic_audio_detection_tpu_torch.ensemble import merger
 from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
 from tests.test_torch_init import assert_flax_init, port_faults
+from tests.test_torch_train_step import _f64
 
 TOL = 1e-4
 
@@ -92,6 +97,21 @@ def _port_logits(ens):
     return ens.cpu()(torch.from_numpy(_x()).permute(0, 3, 1, 2)).numpy()
 
 
+def _assert_logits_within(ens, je, x=None):
+    """The port's logits on ``x`` (default _x()) against JAX's ensemble
+    forward in float64 (the model at float64, its variables cast), within
+    parity_bounds.reference_error_bound of JAX's float32 forward's error."""
+    x = _x() if x is None else x
+    want = np.asarray(JE.ensemble_forward(je, jnp.asarray(x)))
+    with jax.enable_x64(True):
+        je64 = dataclasses.replace(je, model=je.model.clone(dtype=jnp.float64),
+                                   variables=_f64(je.variables))
+        truth = np.asarray(JE.ensemble_forward(je64, jnp.asarray(x, jnp.float64)))
+    got = ens.cpu()(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+    parity_bounds.assert_within_reference(got, want, truth, float(np.abs(truth).max()),
+                                          err_msg="logits")
+
+
 def test_recipe_and_real_name_match_jax(folder, tmp_path, caplog):
     path = str(folder / "recipe.csv")
     assert merger.read_merge_recipe(path) == JM.read_merge_recipe(path)
@@ -111,10 +131,10 @@ def test_recipe_and_real_name_match_jax(folder, tmp_path, caplog):
 @pytest.mark.parametrize("semantics", ["default", "reference"])
 def test_merge_matches_jax(folder, semantics):
     """Both semantics against JAX merge_models on the same files: class
-    names, layout and logits. Under the reference's strict=False semantics
-    the reference-trainer file contributes only its head (the donor's
-    backbone in its place); the port trainer's base.* file loads whole
-    either way."""
+    names, layout and logits (against JAX's forward in float64). Under the
+    reference's strict=False semantics the reference-trainer file
+    contributes only its head (the donor's backbone in its place); the
+    port trainer's base.* file loads whole either way."""
     reference = semantics == "reference"
     donor = str(folder / "donor.pth") if reference else None
     kw = dict(reference_semantics=reference, backbone_weights=donor)
@@ -123,9 +143,7 @@ def test_merge_matches_jax(folder, semantics):
                               smoke_test=reference, **kw)
     assert ens.class_names == list(je.class_names) == ["SynA", "SynB", "Real"]
     assert not ens.shared_backbone and not je.shared_backbone
-    np.testing.assert_allclose(_port_logits(ens),
-                               np.asarray(JE.ensemble_forward(je, jnp.asarray(_x()))),
-                               atol=TOL, rtol=0)
+    _assert_logits_within(ens, je)
     sds = ens.classifier_state_dicts()
     donor_sd = _seeded(3)
     ref_base = torch.load(folder / "ref.pth", weights_only=True)["state_dict"]
@@ -134,6 +152,22 @@ def test_merge_matches_jax(folder, semantics):
         assert torch.equal(sds[0][f"base.{k}"], want), k
     assert torch.equal(sds[0]["head.10.weight"], ref_base["head.10.weight"])
     assert torch.equal(sds[1]["base.conv1.weight"], _seeded(2)["base.conv1.weight"])
+
+
+def test_logit_bound_rejects_a_batchnorm_eps_of_1e_3(folder):
+    """Every BatchNorm's eps at 1e-3 in place of 1e-5 in the port's merged
+    ensemble: the float64-derived bound rejects it, as the fixed 1e-4
+    against JAX's float32 forward did."""
+    je = JM.merge_models(str(folder), str(folder / "recipe.csv"), smoke_test=False)
+    ens = merger.merge_models(str(folder), str(folder / "recipe.csv"), device="cpu",
+                              smoke_test=False)
+    for m in ens.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.eps = 1e-3
+    with pytest.raises(AssertionError, match="logits"):
+        _assert_logits_within(ens, je)
+    want = np.asarray(JE.ensemble_forward(je, jnp.asarray(_x())))
+    assert np.abs(_port_logits(ens) - want).max() > TOL
 
 
 def test_reference_semantics_requires_a_donor(folder):

@@ -151,3 +151,16 @@ def test_quantize_defaults_to_the_card():
     sd = TC().state_dict()
     with pytest.raises(RuntimeError, match="CUDA"):
         TQ.quantize_ensemble(build_ensemble([sd, sd], ["A", "B", "Real"]))
+
+
+def test_int_mm_is_exact_on_the_cpu():
+    """INT_MM on the CPU is exact on any instruction set: codes at their
+    extremes over layer4's K = 4608, where oneDNN's product on a CPU without
+    VNNI saturates its int16 sums of u8·s8 pairs."""
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.choice([-127, 127], (32, 4608)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, (4608, 64)).astype(np.int8))
+    b[:, 0] = 127
+    got = TQ.INT_MM(a, b)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.long(), a.long() @ b.long())

@@ -14,6 +14,7 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import parity_bounds
 import pytest
 import torch
 
@@ -142,10 +143,31 @@ def test_waveform_augment_apply_matches_jax():
 
 
 def test_lowpass_kernels_match_jax():
+    """Both packages' float32 kernels against their float64 evaluation,
+    within parity_bounds.lowpass_truth's float32 bound (a few ulps of
+    each tap: the order of the normalizing sum, the sine's argument)."""
     cut = np.array([4000.0, 9000.0, 15000.0], np.float32)
-    np.testing.assert_allclose(TW.lowpass_kernels(t(cut), 63, 32_000).numpy(),
-                               np.asarray(JW.lowpass_kernels(jnp.asarray(cut), 63, 32_000)),
-                               atol=1e-7, rtol=0)
+    want, bound = parity_bounds.lowpass_truth(cut, 63, 32_000)
+    parity_bounds.assert_within(TW.lowpass_kernels(t(cut), 63, 32_000).numpy(), want, bound,
+                                "port")
+    parity_bounds.assert_within(np.asarray(JW.lowpass_kernels(jnp.asarray(cut), 63, 32_000)),
+                                want, bound, "reference")
+
+
+def test_lowpass_bound_rejects_a_one_sample_shift():
+    """The Hann window one tap off its centre (hann(n − 1)): the float64
+    bound rejects it, as the fixed 1e-7 against JAX did."""
+    cut = np.array([4000.0, 9000.0, 15000.0], np.float32)
+    want, bound = parity_bounds.lowpass_truth(cut, 63, 32_000)
+    fc = t(cut / 32_000)[:, None]
+    n = torch.arange(63, dtype=torch.float32) - 31.0
+    win = 0.5 - 0.5 * torch.cos(2.0 * torch.pi * (torch.arange(63) - 1) / 62)
+    h = 2.0 * fc * torch.sinc(2.0 * fc * n) * win.float()
+    shifted = (h / torch.sum(h, dim=1, keepdim=True)).numpy()
+    with pytest.raises(AssertionError):
+        parity_bounds.assert_within(shifted, want, bound)
+    ref = np.asarray(JW.lowpass_kernels(jnp.asarray(cut), 63, 32_000))
+    assert np.abs(shifted - ref).max() > 1e-7
 
 
 def test_waveform_augment_draw_follows_its_generator():

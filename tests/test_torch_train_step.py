@@ -19,22 +19,25 @@ Tolerances. In float64 the two packages' gradients agree to 1e-10
 relative (test_gradients_match_jax_in_float64: the same function). In
 float32 this tiny, randomly initialised network (layer4 at 2×2, BatchNorm
 over 16 values a channel) amplifies rounding about a thousandfold, so its
-gradients differ by about 1e-4 relative between the packages, however the
-sums are ordered. Hence, for the float32 steps:
-- BN running statistics: 1e-5 relative + 1e-5 absolute;
-- Adam moments: 3e-4 relative + 3e-4 of the tensor's largest magnitude
-  (at least 1e-2 of the model's: a Linear's bias before a BatchNorm has a
-  gradient of rounding noise only);
-- parameters: 1e-5 relative + 1e-6 absolute where the AdamW step is well
-  conditioned (|g| > 1e-6, a hundred times Adam's eps, where the step
-  g / (|g| + eps) damps the gradient's error a hundredfold); below that
-  it amplifies it, so those elements are held to the most a step can
+float32 gradients lie up to about 5e-4 relative from the float64 ones, in
+either package, and where the order of the float32 sums moves with the
+CPU's instruction set, so does that error. So each float32 step is held to
+the JAX package's own step in float64 from the same state and batch
+(f64_side):
+- Adam moments: parity_bounds.reference_error_bound, a multiple of the JAX
+  package's own float32 error on each tensor;
+- BN running statistics: 1e-5 relative + 1e-5 absolute of JAX's;
+- parameters: 1e-5 relative + 1e-6 absolute of JAX's where the AdamW step
+  is well conditioned (|g| > 1e-6, a hundred times Adam's eps, where the
+  step g / (|g| + eps) damps the gradient's error a hundredfold); below
+  that it amplifies it, so those elements are held to the most a step can
   move them, lr per step in either direction.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import parity_bounds
 import pytest
 import torch
 
@@ -50,6 +53,7 @@ from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifi
 from synthetic_audio_detection_tpu_torch.train import steps as TS
 from synthetic_audio_detection_tpu_torch.utils.config import SpecAugmentConfig, SpectrogramConfig
 from synthetic_audio_detection_tpu_torch.utils.config import TrainConfig
+from tests.test_torch_joint import _cross_entropy_keeping_dtype
 
 # a small lr: an ill-conditioned element (below) moves by up to lr per
 # step in either direction, and the next steps' gradients follow the
@@ -77,25 +81,63 @@ class _NoDropout(fnn.Module):
         return x
 
 
-@pytest.fixture(scope="module")
-def jax_side():
-    """The JAX model, its initial state and jitted steps (dropout swapped
-    out for the module)."""
-    mp = pytest.MonkeyPatch()
-    mp.setattr(fnn, "Dropout", _NoDropout)
+def make_jax_side():
+    """The JAX model's initial state and jitted steps; trace them with
+    flax's Dropout swapped for _NoDropout."""
     cfg = JCfg(batch_size=2, lr=LR)
     spec = JSpec(out_size=INPUT)
     model = JaxClassifier(backbone="resnet18")
     state, tx = JS.create_train_state(model, jax.random.PRNGKey(0), cfg, input_size=INPUT)
     off = JAug(enabled=False)
-    yield {
+    return {
         "state": state,
         "step": jax.jit(JS.make_train_step(model, tx, cfg, spec, off)),
         "quirk": jax.jit(JS.make_train_step(model, tx, cfg, spec, off,
                                             reference_quirk_loss=True)),
         "eval": jax.jit(JS.make_eval_step(model, spec)),
     }
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """make_jax_side, dropout swapped out for the module."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(fnn, "Dropout", _NoDropout)
+    yield make_jax_side()
     mp.undo()
+
+
+def make_f64_step():
+    """→ step(js, batch, quirk=False): the JAX package's own train step
+    (make_train_step) in float64 from the float32 state ``js``, the truth
+    the float32 steps are held to: a float64 model, state and batch; its
+    front end and its cross-entropy, which fix float32, swapped for
+    _features_f64 and for the same formula in the logits' dtype while the
+    step runs. Compiled once for the module, as jax_side's steps are."""
+    cfg = JCfg(batch_size=2, lr=LR)
+    with jax.enable_x64(True):
+        model = JaxClassifier(backbone="resnet18", dtype=jnp.float64)
+        tx = JS.make_optimizer(cfg)
+        steps = {q: jax.jit(JS.make_train_step(model, tx, cfg, JSpec(out_size=INPUT),
+                                               JAug(enabled=False), reference_quirk_loss=q))
+                 for q in (False, True)}
+
+    def step(js, batch, quirk=False):
+        with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+            mp.setattr(JS, "_features_from_waveforms", lambda audio, *a, **kw: _features_f64(audio))
+            mp.setattr(JS, "cross_entropy", _cross_entropy_keeping_dtype)
+            new, _ = steps[quirk](_f64(js), dict(batch, weight=batch["weight"].astype(np.float64)),
+                                  jax.random.PRNGKey(0))
+            return jax.tree_util.tree_map(np.asarray, new)
+
+    return step
+
+
+@pytest.fixture(scope="module")
+def f64_side(jax_side):
+    """make_f64_step, compiled once for the module (traced with jax_side's
+    dropout swap)."""
+    return make_f64_step()
 
 
 def _batch(seed=1, nan=False):
@@ -106,6 +148,32 @@ def _batch(seed=1, nan=False):
         audio[0, 0] = np.nan
     return {"audio": audio, "label": np.array([0, 1, 1, 0], np.int32),
             "weight": np.array([1, 1, 1, 0], np.float32)}
+
+
+def _f64(tree):
+    return jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a, jnp.float64) if jnp.issubdtype(jnp.asarray(a).dtype, jnp.floating)
+        else a, tree)
+
+
+def _features_f64(audio):
+    """The JAX package's train-mode front end (gemm DFT, dB, standardize,
+    the resize, three channels; SpecAugment and the crop off) in float64,
+    its host constants (window, DFT basis, filterbank) as they are."""
+    from synthetic_audio_detection_tpu.ops import melspec as JM
+
+    spec = JSpec(out_size=INPUT)
+    fb = JM.mel_filterbank(spec.n_freqs, spec.f_min, spec.f_max, spec.n_mels, 32_000,
+                           spec.mel_norm, spec.mel_scale)
+    n_cols = JM.significant_bins(fb)
+    cos_m, sin_m = JM._dft_matrices(spec.n_fft, n_cols)
+    frames = JM.frame_signal(jnp.asarray(audio, jnp.float64), spec.n_fft, spec.hop_length,
+                             spec.center, spec.pad_mode)
+    xw = frames * jnp.asarray(JM.hann_window(spec.win), jnp.float64)
+    p = (xw @ jnp.asarray(cos_m, jnp.float64)) ** 2 + (xw @ jnp.asarray(sin_m, jnp.float64)) ** 2
+    mel = jnp.swapaxes(p @ jnp.asarray(fb[:n_cols], jnp.float64), 1, 2)
+    z = JM.standardize(JM.amplitude_to_db(mel, spec.top_db), spec.eps)
+    return JM.replicate_channels(JM.finalize_features(z, spec), spec.out_channels)
 
 
 def _torch_batch(b):
@@ -134,22 +202,24 @@ def _sd(state):
             if not k.endswith("num_batches_tracked")}
 
 
-def assert_matches_jax(port, jax_state, n_steps=1):
+def _moments(state):
+    """(count, μ, ν) of a JAX state by the port's parameter names."""
+    count, mu, nu = JS.extract_adam_state(state.opt_state)
+    return (int(count),) + tuple(torch_state_dict_from_variables(
+        {"params": jax.tree_util.tree_map(np.asarray, t)}) for t in (mu, nu))
+
+
+def assert_matches_jax(port, jax_state, truth, n_steps=1):
+    """The port's float32 step against the JAX package's (``jax_state``),
+    both against the JAX package's float64 step (``truth``): the Adam
+    moments within parity_bounds.reference_error_bound, the parameters and
+    BN statistics within the fixed bounds of the module docstring."""
     jv = torch_state_dict_from_variables(jax.tree_util.tree_map(np.asarray,
                                                                 jax_state.variables()))
-    count, mu, nu = JS.extract_adam_state(jax_state.opt_state)
-    to_sd = lambda t: torch_state_dict_from_variables(  # noqa: E731
-        {"params": jax.tree_util.tree_map(np.asarray, t)})
-    mu, nu = to_sd(mu), to_sd(nu)
+    count, mu, nu = _moments(jax_state)
+    _, true_mu, true_nu = _moments(truth)
     assert int(port.count) == count and int(port.step) == int(jax_state.step)
-    pmu, pnu = port.moments()
-    top = {id(m): max(float(np.abs(v).max()) for v in m.values()) for m in (mu, nu)}
-    for k in mu:
-        for got, want, m in ((pmu[k].numpy(), mu[k], mu), (pnu[k].numpy(), nu[k], nu)):
-            # a tensor whose gradient is zero but for rounding (a Linear's
-            # bias before a BatchNorm) takes the model's scale
-            scale = max(float(np.abs(want).max()), 1e-2 * top[id(m)])
-            assert np.all(np.abs(got - want) <= 3e-4 * np.abs(want) + 3e-4 * scale), k
+    parity_bounds.assert_moments_within(port.moments(), (mu, nu), (true_mu, true_nu))
     got_sd = _sd(port)
     for k, want in jv.items():
         got = got_sd[k]
@@ -198,14 +268,14 @@ def test_gradients_match_jax_in_float64(jax_side):
 
 
 @pytest.mark.parametrize("quirk", [False, True], ids=["head-loss", "reference-quirk-loss"])
-def test_train_step_matches_jax(jax_side, quirk):
+def test_train_step_matches_jax(jax_side, f64_side, quirk):
     js = jax_side["state"]
     new_js, jm = jax_side["quirk" if quirk else "step"](js, _batch(), jax.random.PRNGKey(2))
     port = _port_state(js)
     pm = _port_step(quirk)(port, _torch_batch(_batch()), torch.Generator().manual_seed(0))
     assert float(pm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
     assert float(pm["accuracy"]) == pytest.approx(float(jm["accuracy"]))
-    assert_matches_jax(port, new_js)
+    assert_matches_jax(port, new_js, f64_side(js, _batch(), quirk))
     before, after = _sd(_port_state(js)), _sd(port)
     moved = {k for k in after if not np.array_equal(after[k], before[k])}
     head = {k for k in after if k.startswith("head.")}
@@ -218,7 +288,7 @@ def test_train_step_matches_jax(jax_side, quirk):
     assert any(k.startswith("base.layer1") and "running" in k for k in moved)
 
 
-def test_unfreeze_then_step_matches_jax(jax_side):
+def test_unfreeze_then_step_matches_jax(jax_side, f64_side):
     """Two phase-1 steps, the layer3 unfreeze, one more step: the global
     Adam count makes layer3's first bias correction that of step 3 (a
     per-parameter count would make it step 1's). The third step starts
@@ -244,16 +314,69 @@ def test_unfreeze_then_step_matches_jax(jax_side):
     j_before = to_sd(js.params)
     js = JS.unfreeze_layer3(js)
     TS.unfreeze_layer3(port)
+    truth = f64_side(js, _batch(3))
     js, _ = jax_side["step"](js, _batch(3), jax.random.PRNGKey(3))
     before = _sd(port)
     _port_step(stage=3)(port, _torch_batch(_batch(3)), None)
     assert int(port.count) == 3
-    assert_matches_jax(port, js)
+    assert_matches_jax(port, js, truth)
     # layer3's first update: |Δp| ≈ lr·0.64 (count 3), not lr (count 1)
     k = "base.layer3.0.conv1.weight"
     got, want = _sd(port)[k] - before[k], to_sd(js.params)[k] - j_before[k]
     assert 0.5 * LR < float(np.median(np.abs(got))) < 0.8 * LR
     np.testing.assert_allclose(np.median(np.abs(got)), np.median(np.abs(want)), rtol=1e-3)
+
+
+def _adamw_eps_inside_the_square_root(g, p, mu, nu, count, lr, weight_decay, ok):
+    """TS.adamw_update_ with Adam's eps inside the square root: √(ν̂ + eps)
+    in place of √ν̂ + eps."""
+    b1, b2 = (torch.where(ok, b, 1.0) for b in (TS.B1, TS.B2))
+    a1, a2 = (torch.where(ok, 1.0 - b, 0.0) for b in (TS.B1, TS.B2))
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), a2))
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(g, a1))
+    c = (count + 1).float()
+    den = torch._foreach_div(nu, 1.0 - torch.pow(TS.B2, c))
+    torch._foreach_add_(den, TS.EPS)
+    torch._foreach_sqrt_(den)
+    u = torch._foreach_div(mu, 1.0 - torch.pow(TS.B1, c))
+    torch._foreach_div_(u, den)
+    torch._foreach_add_(u, p, alpha=weight_decay)
+    torch._foreach_mul_(u, torch.where(ok, -lr, 0.0))
+    torch._foreach_add_(p, u)
+    return torch.where(ok, count + 1, count)
+
+
+def test_step_check_rejects_eps_inside_the_square_root(jax_side, f64_side, monkeypatch):
+    """Adam's eps inside the square root: where |g| ≈ 1e-5 the update falls
+    to a tenth; the parameters' bound rejects it, as it did before the
+    moments were held to the float64 step."""
+    monkeypatch.setattr(TS, "adamw_update_", _adamw_eps_inside_the_square_root)
+    js = jax_side["state"]
+    new_js, _ = jax_side["step"](js, _batch(), jax.random.PRNGKey(2))
+    port = _port_state(js)
+    _port_step()(port, _torch_batch(_batch()), torch.Generator().manual_seed(0))
+    with pytest.raises(AssertionError):
+        assert_matches_jax(port, new_js, f64_side(js, _batch()))
+
+
+def test_moment_bound_rejects_a_clip_norm_1_5e_4_high(jax_side, f64_side, monkeypatch):
+    """The fault the float64 step found in the port, made on any CPU: the
+    clip's global norm 1.5e-4 relative high (as torch's float32 2-norm on
+    one CPU was over layer4's 2.4M-gradient convs), which scales every
+    moment by as much. Under the reference's quirk loss JAX's own float32
+    error on layer4's μ is at most 3e-5 of each tensor's largest, and on
+    most of them far less, so the derived bound rejects the fault; the
+    fixed 3e-4 against JAX's float32 step let it through."""
+    norms = TS.tensor_norms
+    monkeypatch.setattr(TS, "tensor_norms", lambda ts: [n * (1 + 1.5e-4) for n in norms(ts)])
+    js = jax_side["state"]
+    new_js, _ = jax_side["quirk"](js, _batch(), jax.random.PRNGKey(2))
+    port = _port_state(js)
+    _port_step(True)(port, _torch_batch(_batch()), torch.Generator().manual_seed(0))
+    with pytest.raises(AssertionError, match="layer4"):
+        assert_matches_jax(port, new_js, f64_side(js, _batch(), True))
 
 
 def test_nan_batch_skips_the_whole_update(jax_side):
@@ -302,6 +425,21 @@ def test_stop_grad_step_matches_masked_step(jax_side, phase):
     init = _sd(_port_state(jax_side["state"]))
     assert not np.array_equal(b["base.layer1.0.bn1.running_mean"],
                               init["base.layer1.0.bn1.running_mean"])
+
+
+def test_clip_norm_is_exact_over_a_large_tensor():
+    """The clip's global norm over a ResNet-18 layer4 conv's 2.4M gradients
+    and a small tensor, against the float64 norm: within 1e-6 relative
+    (torch's float32 2-norm on the CPU is about 4e-5 off here)."""
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(2_359_296).astype(np.float32)
+                         * 1e-2)
+    small = torch.ones(8)
+    exact = float(np.sqrt((g.double() ** 2).sum() + 8.0))
+    got = [g.clone(), small.clone()]
+    TS.clip_by_global_norm_(got, 0.5)
+    assert float(got[1][0]) == pytest.approx(0.5 / exact, rel=1e-6)
+    norm = torch.linalg.vector_norm(torch.stack(TS.tensor_norms([g, small])))
+    assert float(norm) == pytest.approx(exact, rel=1e-12)
 
 
 @pytest.mark.parametrize("scale", [1e-2, 10.0], ids=["below-the-clip", "above-the-clip"])

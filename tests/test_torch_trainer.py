@@ -11,6 +11,7 @@ import shutil
 import jax
 import jax.numpy as jnp
 import numpy as np
+import parity_bounds
 import pytest
 import torch
 
@@ -21,6 +22,7 @@ from synthetic_audio_detection_tpu.utils.config import SpectrogramConfig as JSpe
 from synthetic_audio_detection_tpu.utils.config import TrainConfig as JCfg
 from synthetic_audio_detection_tpu_torch.audio import wavio
 from synthetic_audio_detection_tpu_torch.checkpoints import serialization as TSer
+from synthetic_audio_detection_tpu_torch.train import steps
 from synthetic_audio_detection_tpu_torch.train.trainer import Trainer
 from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig, TrainConfig
 
@@ -104,38 +106,79 @@ def test_trainer_refuses_what_is_not_ported():
                    device="cpu").checkpointer is None
 
 
-def test_s2d_stage1_step_equals_plain_step(tmp_path):
-    """TrainConfig(s2d_stage1=True) at 512² (stage-1 height 128: the gate
-    engages) with the full backward: one train step from the same seed on
-    the same 4 rows as the plain model's. Float32 reassociation moves the
-    gradients by up to about 0.5% of their norm (as much as a plain step in
-    channels_last layout does; float64 is exact,
-    tests/test_torch_space_to_depth.py), so: the loss to 1e-5, every BN
-    statistic to 1e-5, the Adam first moments to 2% of their norm (or of
-    1% of the largest for a moment that is rounding only), the frozen
-    weights equal and the trained ones within AdamW's 2·lr."""
+def _s2d_and_plain_steps(tmp_path, s2d_h=None, s2d_loss=None):
+    """One train step at 512² of the plain model, of the s2d_stage1 model
+    (its space_to_depth_h replaced by ``s2d_h``, and its cross-entropy by
+    ``s2d_loss``, when given) and of the
+    plain model in float64 (the same features and dropout draws; no
+    backward, no update). → [(loss, state dict, μ, logits)] in that order,
+    the number of s2d calls."""
     from synthetic_audio_detection_tpu_torch.ops import space_to_depth as s2d
 
     rng = np.random.default_rng(1)
     batch = {"audio": torch.from_numpy((rng.standard_normal((4, 32_000)) * 0.2).astype(
         np.float32)), "label": torch.tensor([0, 1, 1, 0]), "weight": torch.tensor([1., 1, 1, 0])}
     spec = SpectrogramConfig(out_size=512, mel_norm=None)
-    calls, orig = [], s2d.space_to_depth_h
-    out = []
-    for flag in (False, True):
+    calls, orig = [], s2d_h or s2d.space_to_depth_h
+    cross_entropy = steps.cross_entropy
+
+    def step(flag, float64=False):
+        loss_fn = (s2d_loss if flag else None) or cross_entropy
         cfg = TrainConfig(s2d_stage1=flag, stop_grad_boundary=False, seed=3, batch_size=2)
         tr = Trainer(cfg, spec_cfg=spec, device="cpu", log_dir=str(tmp_path / "runs"))
         assert tr.model.base.s2d_stage1 is flag
-        s2d.space_to_depth_h = lambda x: (calls.append(tuple(x.shape)), orig(x))[1]
-        try:
+        logits = []
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(steps, "cross_entropy", lambda z, *a, **kw: (
+                logits.append(z.detach().double().numpy()), loss_fn(z, *a, **kw))[1])
+            mp.setattr(s2d, "space_to_depth_h",
+                       lambda x: (calls.append(tuple(x.shape)), orig(x))[1])
+            if float64:
+                tr.model.double()
+                features = steps.features_from_waveforms
+                mp.setattr(steps, "features_from_waveforms",
+                           lambda *a, **kw: features(*a, **kw).double())
+                mp.setattr(steps, "gradients", lambda loss, params, dtype: [None] * len(params))
+                mp.setattr(steps, "apply_update_",
+                           lambda state, grads, loss, *a, **kw: torch.isfinite(loss))
             m = tr._train_step(tr.state, batch, tr.generator)
-        finally:
-            s2d.space_to_depth_h = orig
         mu, _ = tr.state.moments()
-        out.append((float(m["loss"]), tr.state_dict(), {k: v.numpy() for k, v in mu.items()}))
+        return (float(m["loss"]), tr.state_dict(), {k: v.numpy() for k, v in mu.items()},
+                logits[0])
+
+    return [step(False), step(True), step(False, float64=True)], calls
+
+
+def _assert_s2d_within(plain, s2d_step, truth):
+    """The s2d step's logits against the plain step's forward in float64,
+    within reference_error_bound of the plain float32 step's error on them,
+    and its loss within what its logits' own error explains
+    (parity_bounds.assert_loss_within)."""
+    parity_bounds.assert_within_reference(s2d_step[3], plain[3], truth[3],
+                                          float(np.abs(truth[3]).max()), err_msg="logits")
+    parity_bounds.assert_loss_within(s2d_step[0], truth[0], s2d_step[3], truth[3])
+
+
+def test_s2d_stage1_step_equals_plain_step(tmp_path):
+    """TrainConfig(s2d_stage1=True) at 512² (stage-1 height 128: the gate
+    engages) with the full backward: one train step from the same seed on
+    the same 4 rows as the plain model's. Float32 reassociation moves the
+    gradients by up to about 0.5% of their norm (as much as a plain step in
+    channels_last layout does; float64 is exact,
+    tests/test_torch_space_to_depth.py), so: the logits against the plain
+    step's forward in float64, within parity_bounds.reference_error_bound
+    of the plain float32 step's error on them (the order of oneDNN's
+    float32 sums follows the CPU's instruction set, and with it that
+    error), and the loss within twice its logits' largest error (a
+    cross-entropy over two classes moves by at most twice its largest
+    logit's move) and its own rounding; every BN
+    statistic to 1e-5, the Adam first moments to 2% of their norm (or of
+    1% of the largest for a moment that is rounding only), the frozen
+    weights equal and the trained ones within AdamW's 2·lr."""
+    (plain, s2d_step, truth), calls = _s2d_and_plain_steps(tmp_path)
     assert calls == [(4, 64, 128, 128)]
-    (loss_a, sd_a, mu_a), (loss_b, sd_b, mu_b) = out
-    np.testing.assert_allclose(loss_b, loss_a, rtol=1e-5)
+    _assert_s2d_within(plain, s2d_step, truth)
+    (_, sd_a, mu_a, _), (_, sd_b, mu_b, _) = plain, s2d_step
     top = max(np.linalg.norm(v) for v in mu_a.values())
     for k, v in mu_a.items():
         scale = max(np.linalg.norm(v), 1e-2 * top)
@@ -147,6 +190,37 @@ def test_s2d_stage1_step_equals_plain_step(tmp_path):
             assert np.abs(sd_b[k] - v).max() <= 2 * TrainConfig().lr + 1e-6, k
         else:
             np.testing.assert_array_equal(sd_b[k], v, err_msg=k)
+
+
+def test_s2d_bound_rejects_swapped_row_phases(tmp_path):
+    """The s2d stage's two row phases swapped (channel (1 − py, c) for
+    (py, c)): the float64-derived bound rejects it, as the fixed 1e-5 on
+    the loss did."""
+    from synthetic_audio_detection_tpu_torch.ops import space_to_depth as s2d
+
+    real = s2d.space_to_depth_h
+    swap = lambda x: torch.roll(real(x), x.shape[1], dims=1)  # noqa: E731
+    (plain, s2d_step, truth), calls = _s2d_and_plain_steps(tmp_path, swap)
+    assert calls == [(4, 64, 128, 128)]
+    with pytest.raises(AssertionError, match="logits"):
+        _assert_s2d_within(plain, s2d_step, truth)
+    assert abs(s2d_step[0] - plain[0]) > 1e-5 * abs(plain[0])
+
+
+def test_s2d_loss_check_rejects_zero_rows_in_the_denominator(tmp_path):
+    """The s2d step's cross-entropy counting the row weighted 0 in its
+    denominator (the loss at 3/4 of itself): its logits hold to their
+    bound, and the loss check rejects it, as the fixed 1e-5 on the loss
+    did."""
+    ce = steps.cross_entropy
+    (plain, s2d_step, truth), _ = _s2d_and_plain_steps(
+        tmp_path, s2d_loss=lambda z, labels, weights=None, total=None: ce(
+            z, labels, weights, torch.tensor(float(labels.shape[0]))))
+    parity_bounds.assert_within_reference(s2d_step[3], plain[3], truth[3],
+                                          float(np.abs(truth[3]).max()), err_msg="logits")
+    with pytest.raises(AssertionError, match="loss"):
+        _assert_s2d_within(plain, s2d_step, truth)
+    assert abs(s2d_step[0] - plain[0]) > 1e-5 * abs(plain[0])
 
 
 def test_fit_counts_steps_and_pads_batches(trained):
