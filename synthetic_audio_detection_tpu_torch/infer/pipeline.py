@@ -45,6 +45,19 @@ The forward itself makes no collective.
 (infer/export.py) with the same host side: its device pass is the exported
 program (the float32 GEMM mel and the plain backbone, no hand-written
 kernel), at the artifact's batch entries only.
+
+Spans (``utils/profiling.span``, ranges in a profiler's trace, nothing
+without one): ``serve.request`` around ``analyze_windows``; in it, per
+device batch, ``serve.pad`` (slice, int16 quantize, the tail's zero
+block, the contiguous copy), then the host-to-device copy (no range of its
+own), ``serve.forward`` (``_forward``) with ``serve.frontend`` and
+``serve.backbone`` inside ``forward_windows``, ``serve.d2h`` (the logits'
+read-back, which waits for the device); then ``serve.decide``
+(calibration, sigmoid, decision, smoothing, the result). A generator's
+span opens and closes between two of its yields.
+Counters (``utils/profiling.count``): ``serve.batches``, ``serve.rows``
+(bucket rows, padding included) and ``serve.useful_rows``, per device
+batch.
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ from synthetic_audio_detection_tpu_torch.ops.cuda_melspec import dequantize, ser
 from synthetic_audio_detection_tpu_torch.ops.filters import gaussian_filter1d
 from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
 from synthetic_audio_detection_tpu_torch.parallel.sharding import pad_batch_to_multiple, shard_batch
+from synthetic_audio_detection_tpu_torch.utils.profiling import count, span
 
 
 # ---------------------------------------------------------------------------
@@ -142,22 +156,24 @@ def forward_windows(
     ``return_per_head`` also the per-head logits [N, B, 2] of the same
     pass. ``use_s2d_layer1`` runs the plain backbones with stage 1 in
     space-to-depth form, in place of the fast backbone."""
-    windows = dequantize(windows)
-    dtype = ensemble.dtype
-    if use_kernel:
-        z = serving_log_mel(windows, spec_cfg, sample_rate)  # [B, mels, frames]
-        feats = melspec.finalize_features(z, spec_cfg).to(dtype)
-    else:
-        feats = melspec.log_mel_features(windows, spec_cfg, sample_rate,
-                                         use_gemm_dft=True, out_dtype=dtype)
-    if ensemble.in_channels == 1:
-        x = feats[:, None]
-    else:
-        x = melspec.replicate_channels(feats, spec_cfg.out_channels)
-    logits_nh = ensemble_per_head_logits(
-        ensemble, x, fast_backbone=use_fast_backbone and not use_s2d_layer1,
-        conv3x3_max_channels=conv3x3_max_channels, s2d_stage1=use_s2d_layer1)
-    agg = _aggregate(logits_nh)
+    with span("serve.frontend"):
+        windows = dequantize(windows)
+        dtype = ensemble.dtype
+        if use_kernel:
+            z = serving_log_mel(windows, spec_cfg, sample_rate)  # [B, mels, frames]
+            feats = melspec.finalize_features(z, spec_cfg).to(dtype)
+        else:
+            feats = melspec.log_mel_features(windows, spec_cfg, sample_rate,
+                                             use_gemm_dft=True, out_dtype=dtype)
+        if ensemble.in_channels == 1:
+            x = feats[:, None]
+        else:
+            x = melspec.replicate_channels(feats, spec_cfg.out_channels)
+    with span("serve.backbone"):
+        logits_nh = ensemble_per_head_logits(
+            ensemble, x, fast_backbone=use_fast_backbone and not use_s2d_layer1,
+            conv3x3_max_channels=conv3x3_max_channels, s2d_stage1=use_s2d_layer1)
+        agg = _aggregate(logits_nh)
     return (agg, logits_nh) if return_per_head else agg
 
 
@@ -248,7 +264,7 @@ class InferencePipeline:
         # a float32 program runs with TF32 off: a process flag, not part of
         # an exported graph, so the artifact's forward takes the scope too
         exact = self.compute_dtype == torch.float32
-        with exact_float32() if exact else contextlib.nullcontext():
+        with span("serve.forward"), exact_float32() if exact else contextlib.nullcontext():
             if self._program is not None:
                 return self._program(batch)
             return forward_windows(
@@ -311,18 +327,25 @@ class InferencePipeline:
         the device batch is this rank's rows of the bucket."""
         num = windows.shape[0]
         bucket = self._bucket(num)
-        if quantize and self.transport_dtype == "int16" and windows.dtype != np.int16:
-            windows = wavio.pcm16_quantize(windows)
+        pcm16 = quantize and self.transport_dtype == "int16" and windows.dtype != np.int16
         i = 0
         while i < num:
             take = min(bucket, num - i)
-            batch = windows[i : i + take]
-            if take < bucket:
-                batch = np.concatenate(
-                    [batch, np.zeros((bucket - take, windows.shape[1]), windows.dtype)])
-            if self.mesh is not None:
-                batch = shard_batch(self.mesh, {"w": batch})["w"]
-            yield torch.from_numpy(np.ascontiguousarray(batch)).to(self.device), take
+            with span("serve.pad"):
+                batch = windows[i : i + take]
+                if pcm16:
+                    batch = wavio.pcm16_quantize(batch)
+                if take < bucket:
+                    batch = np.concatenate(
+                        [batch, np.zeros((bucket - take, windows.shape[1]), batch.dtype)])
+                if self.mesh is not None:
+                    batch = shard_batch(self.mesh, {"w": batch})["w"]
+                batch = np.ascontiguousarray(batch)
+            batch = torch.from_numpy(batch).to(self.device)
+            count("serve.batches")
+            count("serve.rows", bucket)
+            count("serve.useful_rows", take)
+            yield batch, take
             i += take
 
     def _whole_batch(self, agg: torch.Tensor, nh: Optional[torch.Tensor] = None):
@@ -345,7 +368,9 @@ class InferencePipeline:
             return np.zeros((0, self.ensemble.num_heads + 1), np.float32)
         out = []
         for batch, take in self._bucketed_batches(windows):
-            out.append(self._whole_batch(self._forward(batch))[:take].float().cpu().numpy())
+            agg = self._forward(batch)
+            with span("serve.d2h"):
+                out.append(self._whole_batch(agg)[:take].float().cpu().numpy())
         return np.concatenate(out, axis=0)
 
     # -- diagnostics --------------------------------------------------------
@@ -403,12 +428,19 @@ class InferencePipeline:
                         logits: Optional[np.ndarray] = None) -> Dict[str, Any]:
         """Windows → the reference result dict {segments, percentages}.
         ``logits`` skips the device pass with precomputed serving logits."""
-        smooth = self.infer.smooth if smooth is None else smooth
-        class_names = self.ensemble.class_names
         if windows.shape[0] == 0:
             return {"segments": [], "percentages": {}}
-        if logits is None:
-            logits = self.logits_for_windows(windows)
+        with span("serve.request"):
+            if logits is None:
+                logits = self.logits_for_windows(windows)
+            with span("serve.decide"):
+                return self._decide(stamps, smooth, logits)
+
+    def _decide(self, stamps: Sequence[Tuple[float, float]], smooth: Optional[bool],
+                logits: np.ndarray) -> Dict[str, Any]:
+        """Serving logits [num, C] → the reference result dict."""
+        smooth = self.infer.smooth if smooth is None else smooth
+        class_names = self.ensemble.class_names
         if self._cal is not None:
             from synthetic_audio_detection_tpu_torch.utils.calibration import apply_calibration
 

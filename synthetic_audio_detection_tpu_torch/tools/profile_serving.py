@@ -9,8 +9,9 @@
 Builds a shared-backbone ResNet-18 ensemble (3 heads, weights from
 ``--seed``; ``--mono`` folds its stem to one input plane with
 ``fold_to_mono``, the native serving default) and a batch of seeded noise
-windows, runs the bf16 ``InferencePipeline`` at ``--input-size`` (512,
-256, ... or ``native``; default 512) on each route (``kernel``: the default,
+windows, serves them as one request (``analyze_windows``, one 128-window
+device batch) through the bf16 ``InferencePipeline`` at ``--input-size``
+(512, 256, ... or ``native``; default 512) on each route (``kernel``: the default,
 ``conv3x3_max_channels=512``, the 3x3 convs and 1x1 downsamples through the
 hand-written conv kernel; ``knob-0``: every conv the kernel's plain
 composition, a float32 cuDNN conv of the bf16 values with TF32 off, the
@@ -25,8 +26,11 @@ log-mel (``front-k2``: the strip kernel's ``fused_log_mel``; ``front-k1``:
 the factored kernel; ``front-k1-lowp``: the factored kernel with
 ``lowp_tail``) → ``finalize_features`` at ``--input-size`` → bf16. Prints, per route,
 the host wall per batch, the device's busy and idle share of that wall, and
-the device time per batch by part, largest first, and with ``--out`` writes
-the same as JSON. It runs on CUDA only: without it, or with ``--device``
+the device time per batch by part, largest first, and by the program's
+``serve.*`` range (``infer/pipeline.py``) with its host time, and the
+program's feed counters over the traced batches (``serve.batches``, the
+bucket rows per device batch, the share of them that are windows and not
+padding), and with ``--out`` writes the same as JSON. It runs on CUDA only: without it, or with ``--device``
 naming another device type, it exits non-zero.
 """
 
@@ -75,6 +79,34 @@ def classify(name: str) -> str:
     return "other"
 
 
+# the program's ranges (utils/profiling.span); a profiler also lays each one
+# that launched device work on the device timeline, where it is no kernel
+RANGE_PREFIXES = ("serve.", "train_step.")
+
+
+def own_kernel_us(e) -> float:
+    """Device time of the kernels that host event ``e`` itself launched."""
+    return sum(k.duration for k in e.kernels if not k.name.startswith(RANGE_PREFIXES))
+
+
+def kernel_us(e) -> float:
+    """Device time of the kernels that ``e`` and its children launched on
+    its thread."""
+    return own_kernel_us(e) + sum(kernel_us(c) for c in e.cpu_children)
+
+
+def feed_counts(counts: Dict[str, int]) -> Dict[str, float]:
+    """The serving feed's counters (``utils/profiling.count`` in
+    ``infer/pipeline.py``) → device batches, bucket rows per batch and the
+    share of those rows that are windows, in %; empty without batches."""
+    batches = counts.get("serve.batches", 0)
+    if not batches:
+        return {}
+    rows = counts["serve.rows"]
+    return {"device_batches": batches, "rows_per_device_batch": rows / batches,
+            "useful_row_share": 100.0 * counts["serve.useful_rows"] / rows}
+
+
 def busy_us(intervals: List[Tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals."""
     total, end = 0.0, -np.inf
@@ -91,16 +123,24 @@ def profile_route(run, batches: int) -> Dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from synthetic_audio_detection_tpu_torch.utils import profiling
+
     for _ in range(3):
         run()
     torch.cuda.synchronize()
+    profiling.reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(batches):
             run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    feed = feed_counts(profiling.counters())
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in prof.events()
+              if e.device_type == cuda and not e.name.startswith(RANGE_PREFIXES)]
+    ranges = [e for e in prof.events() if e.device_type != cuda and e.name.startswith("serve.")]
+    range_names = sorted({e.name for e in ranges})
     if not device:
         raise RuntimeError("the profiler recorded no device activity")
     parts: Dict[str, float] = {}
@@ -119,6 +159,11 @@ def profile_route(run, batches: int) -> Dict:
         "device_ms_per_batch": dict(sorted(parts.items(), key=lambda kv: -kv[1])),
         "device_ms_total_per_batch": total,
         "top_kernels_ms_per_batch": dict(sorted(names.items(), key=lambda kv: -kv[1])[:15]),
+        "device_ms_by_range": {r: sum(kernel_us(e) for e in ranges if e.name == r) / 1e3
+                               / batches for r in range_names},
+        "host_ms_by_range": {r: sum(e.cpu_time_total for e in ranges if e.name == r) / 1e3
+                             / batches for r in range_names},
+        "feed": feed,
     }
 
 
@@ -173,6 +218,7 @@ def main(argv=None) -> int:
         "front-k1": cuda_melspec.fused_log_mel_factored,
         "front-k1-lowp": lambda x, c: cuda_melspec.fused_log_mel_factored(x, c, lowp_tail=True),
     }
+    stamps = [(4.0 * i, 4.0 * (i + 1)) for i in range(len(windows))]
     x = torch.from_numpy(windows).to(args.device)
 
     def runner(route):
@@ -185,11 +231,11 @@ def main(argv=None) -> int:
             pipe = InferencePipeline.from_artifact(export.export_serving(
                 ens, spec=spec, compute_dtype=torch.bfloat16, device=args.device),
                 device=args.device)
-            return lambda: pipe.logits_for_windows(windows)
+            return lambda: pipe.analyze_windows(windows, stamps)
         pipe = InferencePipeline(ens, spec=spec, infer=InferenceConfig(),
                                  compute_dtype=torch.bfloat16, device=args.device,
                                  conv3x3_max_channels={"knob-0": 0, "kernel": 512}[route])
-        return lambda: pipe.logits_for_windows(windows)
+        return lambda: pipe.analyze_windows(windows, stamps)
 
     size = args.input_size or "native"
     result = {"device": smi, "torch": torch.__version__, "batch": 128, "input": size,
@@ -204,6 +250,14 @@ def main(argv=None) -> int:
         for part, ms in r["device_ms_per_batch"].items():
             share = 100 * ms / r["device_ms_total_per_batch"]
             print(f"[profile] {route}:   {part:22s} {ms:8.3f} ms  {share:5.1f}%")
+        for rng, ms in r["device_ms_by_range"].items():
+            print(f"[profile] {route}:   {rng:22s} {ms:8.3f} ms  (host "
+                  f"{r['host_ms_by_range'][rng]:.3f} ms)")
+        if r["feed"]:
+            f = r["feed"]
+            print(f"[profile] {route}:   serve.batches {f['device_batches']}, "
+                  f"{f['rows_per_device_batch']:.1f} bucket rows a batch, "
+                  f"{f['useful_row_share']:.1f}% of them windows")
         for name, ms in r["top_kernels_ms_per_batch"].items():
             print(f"[profile] {route}:     {ms:8.3f} ms  {classify(name):22s} {name[:100]}")
     if args.out:

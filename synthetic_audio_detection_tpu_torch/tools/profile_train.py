@@ -10,10 +10,10 @@ after layer3 unfreezes) it times the step with CUDA events (median of 20
 back-to-back steps after warm-up), the host wall per step with a
 synchronise after each, and traces ``--steps`` steps with ``torch.profiler``:
 the device's busy and idle share of the wall, the device time of the
-step's ``record_function`` parts (``train_step.features``, ``.forward``,
-``.optimizer``; the rest is the backward, which runs on autograd's device
-thread) with their host time, the tensors allocated a step, and the device
-time by kind of kernel. Prints it all and with
+step's ranges (``train_step.features``, ``.forward``, ``.backward``,
+``.optimizer``; the backward's kernels are the ones autograd's device
+thread launches) with their host time, the tensors allocated a step, and
+the device time by kind of kernel. Prints it all and with
 ``--out`` writes it as JSON. Without CUDA it exits non-zero.
 """
 
@@ -31,9 +31,16 @@ from typing import Dict
 
 import numpy as np
 
-from synthetic_audio_detection_tpu_torch.tools.profile_serving import busy_us, classify
+from synthetic_audio_detection_tpu_torch.tools.profile_serving import (
+    RANGE_PREFIXES,
+    busy_us,
+    classify,
+    kernel_us,
+    own_kernel_us,
+)
 
-RANGES = ("train_step.features", "train_step.forward", "train_step.optimizer")
+RANGES = ("train_step.features", "train_step.forward", "train_step.backward",
+          "train_step.optimizer")
 # the step's own kinds of kernel, before profile_serving's table
 TRAIN_PARTS = [
     ("multi-tensor (optimizer)", ("multi_tensor_apply",)),
@@ -67,18 +74,20 @@ def trace(step, steps: int) -> Dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
-    # the ranges appear on the device timeline too, as annotations: kernels only
-    device = [e for e in events if e.device_type == cuda and e.name not in RANGES]
+    device = [e for e in events if e.device_type == cuda and not e.name.startswith(RANGE_PREFIXES)]
     if not device:
         raise RuntimeError("the profiler recorded no device activity")
     total = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
-    ranges = {r: sum(e.device_time_total for e in events
-                     if e.name == r and e.device_type != cuda) / 1e3 / steps for r in RANGES}
-    ranges["backward and the rest"] = total - sum(ranges.values())
-    host_ms = {r: sum(e.cpu_time_total for e in events
-                      if e.name == r and e.device_type != cuda) / 1e3 / steps for r in RANGES}
-    allocations = sum(e.name in ("aten::empty", "aten::empty_strided")
-                      for e in events if e.device_type != cuda) / steps
+    host = [e for e in events if e.device_type != cuda]
+    ranges = {r: sum(kernel_us(e) for e in host if e.name == r) / 1e3 / steps for r in RANGES}
+    # autograd's device thread launches the backward while train_step.backward is open
+    stepping = {e.thread for e in host if e.name in RANGES}
+    ranges["train_step.backward"] += sum(own_kernel_us(e) for e in host
+                                         if e.thread not in stepping) / 1e3 / steps
+    ranges["outside the ranges"] = total - sum(ranges.values())
+    host_ms = {r: sum(e.cpu_time_total for e in host if e.name == r) / 1e3 / steps
+               for r in RANGES}
+    allocations = sum(e.name in ("aten::empty", "aten::empty_strided") for e in host) / steps
     kinds: Dict[str, float] = {}
     names: Dict[str, float] = {}
     for e in device:

@@ -43,7 +43,6 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from synthetic_audio_detection_tpu_torch.checkpoints import serialization
 from synthetic_audio_detection_tpu_torch.data import dataset as ds
@@ -70,6 +69,7 @@ from synthetic_audio_detection_tpu_torch.utils.config import (
     SpectrogramConfig,
     TrainConfig,
 )
+from synthetic_audio_detection_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -310,7 +310,7 @@ def make_joint_train_step(
         rows = None if mesh is None else mesh.rows(batch["audio"].shape[0])
         set_dropout_generator(model, generator, rows)
         sync_batch_stats(model, mesh)
-        with steps._precision(torch.float32, device), record_function("train_step.features"):
+        with steps._precision(torch.float32, device), span("train_step.features"):
             x = steps.features_from_waveforms(batch["audio"], spec_cfg, augment, generator,
                                               sample_rate, dft_mode=dft_mode, rows=rows)
         labels = batch["label"]
@@ -326,10 +326,11 @@ def make_joint_train_step(
                                    else w_nb.sum(1))
         buffers, saved = steps.save_buffers(model)
         params = state.params
-        with steps._precision(compute_dtype, device), record_function("train_step.forward"):
+        with steps._precision(compute_dtype, device), span("train_step.forward"):
             logits_nb = model(x)
             loss, per_head = joint_loss(logits_nb, y_nb, weights, w_nb, dens, num_heads)
-        grads = steps.gradients(loss, params, compute_dtype)
+        with span("train_step.backward"):
+            grads = steps.gradients(loss, params, compute_dtype)
         norm_fn = None
         if mesh is not None:
             live = [i for i, m in enumerate(state.mask) if m]
@@ -359,7 +360,7 @@ def make_joint_train_step(
             both[1, h0:h1] = acc
             per_head, acc = mesh.all_reduce(both.reshape(-1), axis=None).view(2, num_heads)
             loss = per_head.sum() / num_heads
-        with record_function("train_step.optimizer"):
+        with span("train_step.optimizer"):
             ok = steps.apply_update_(state, grads, loss, cfg, buffers, saved, norm_fn=norm_fn)
         return {"loss": loss.detach(), "per_head_loss": per_head.detach(),
                 "per_head_accuracy": acc, "accuracy": acc.mean(), "skipped": (~ok).float()}

@@ -26,9 +26,11 @@ masked again, and the NaN-skip. Semantics are optax's and flax's, not
 
 The step's random draws (waveform augmentation, masks, crop, dropout) come
 from the ``torch.Generator`` it is given, so one seed gives one step. Its
-parts are ``record_function`` ranges (``train_step.features``, ``.forward``,
-``.optimizer``; the backward runs on autograd's device thread, outside
-them) for ``tools/profile_train.py``.
+parts are ranges in a profiler's trace (``utils/profiling.span``):
+``train_step.features``, ``.forward``, ``.backward`` (opened on the calling
+thread; autograd's device thread launches the backward's kernels while it
+is open) and ``.optimizer``; ``trainer.device_batches`` adds
+``train_step.feed``.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from synthetic_audio_detection_tpu_torch.models.classifier import BinaryClassifier
 from synthetic_audio_detection_tpu_torch.models.head import set_dropout_generator
@@ -55,6 +56,7 @@ from synthetic_audio_detection_tpu_torch.utils.config import (
     SpectrogramConfig,
     TrainConfig,
 )
+from synthetic_audio_detection_tpu_torch.utils.profiling import span
 
 PHASE1_PREFIXES = ("head", "layer4")
 PHASE2_PREFIXES = ("head", "layer4", "layer3")
@@ -410,7 +412,7 @@ def make_train_step(
         rows = None if mesh is None else mesh.rows(batch["audio"].shape[0])
         set_dropout_generator(model, generator, rows)
         sync_batch_stats(model, mesh)
-        with _precision(torch.float32, device), record_function("train_step.features"):
+        with _precision(torch.float32, device), span("train_step.features"):
             x = features_from_waveforms(batch["audio"], spec_cfg, augment, generator,
                                         sample_rate, dft_mode=dft_mode, rows=rows)
         labels = batch["label"]
@@ -422,13 +424,14 @@ def make_train_step(
             total_w = mesh.all_reduce(weights.float().sum()[None])[0]
         buffers, saved = save_buffers(model)
         params = state.params
-        with _precision(compute_dtype, device), record_function("train_step.forward"):
+        with _precision(compute_dtype, device), span("train_step.forward"):
             if reference_quirk_loss:
                 out = model.base(x).mean(dim=(2, 3))  # pooled features AS the logits
             else:
                 out = model(x)
             loss = cross_entropy(out, labels, weights, total_w)
-        grads = gradients(loss, params, compute_dtype)
+        with span("train_step.backward"):
+            grads = gradients(loss, params, compute_dtype)
         mask = state.mask
         if reference_quirk_loss:
             # only the backbone is in the graph: the head gets no update
@@ -441,7 +444,7 @@ def make_train_step(
             correct = ((torch.argmax(out, -1) == labels).float() * weights.float()).sum()
             both = mesh.all_reduce(torch.stack([loss.detach(), correct]))
             loss, acc = both[0], both[1] / torch.clamp(total_w, min=1.0)
-        with record_function("train_step.optimizer"):
+        with span("train_step.optimizer"):
             ok = apply_update_(state, grads, loss, cfg, buffers, saved, mask)
         return {"loss": loss.detach(), "accuracy": acc, "skipped": (~ok).float()}
 

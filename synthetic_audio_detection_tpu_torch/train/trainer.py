@@ -58,6 +58,7 @@ from synthetic_audio_detection_tpu_torch.utils.config import (
     SpectrogramConfig,
     TrainConfig,
 )
+from synthetic_audio_detection_tpu_torch.utils.profiling import span
 from synthetic_audio_detection_tpu_torch.utils.tb_writer import SummaryWriter
 
 log = logging.getLogger(__name__)
@@ -123,23 +124,31 @@ def device_batches(batcher, epoch: int, target_rows: int, transport: str,
     ``target_rows`` with zero audio weighted 0 (a grain batch, or a row
     window ``rows`` of each batch, comes padded, with its weights), its
     audio as int16 PCM under the int16 transport, through pinned memory on
-    the card."""
+    the card. Each batch's ``train_step.feed`` range covers the wait for the
+    batcher, the padding, the pinning and the copy, and closes before the
+    yield."""
     pin = device.type == "cuda"
-    for batch in batcher.epoch(epoch, rows=rows):
-        if "weight" in batch:  # grain backend: fixed-shape batches with weights
-            padded = batch
-        else:
-            padded, n = ds.pad_batch(batch, target_rows)
-            padded["weight"] = (np.arange(target_rows) < n).astype(np.float32)
-        audio = padded["audio"]
-        if transport == "int16" and audio.dtype != np.int16:
-            audio = wavio.pcm16_quantize(audio)
-        out = {"audio": torch.from_numpy(np.ascontiguousarray(audio)),
-               "label": torch.from_numpy(np.asarray(padded["label"], np.int64)),
-               "weight": torch.from_numpy(np.asarray(padded["weight"], np.float32))}
-        if pin:
-            out = {k: v.pin_memory() for k, v in out.items()}
-        yield {k: v.to(device, non_blocking=pin) for k, v in out.items()}
+    batches = iter(batcher.epoch(epoch, rows=rows))
+    while True:
+        with span("train_step.feed"):
+            batch = next(batches, None)
+            if batch is None:
+                return
+            if "weight" in batch:  # grain backend: fixed-shape batches with weights
+                padded = batch
+            else:
+                padded, n = ds.pad_batch(batch, target_rows)
+                padded["weight"] = (np.arange(target_rows) < n).astype(np.float32)
+            audio = padded["audio"]
+            if transport == "int16" and audio.dtype != np.int16:
+                audio = wavio.pcm16_quantize(audio)
+            out = {"audio": torch.from_numpy(np.ascontiguousarray(audio)),
+                   "label": torch.from_numpy(np.asarray(padded["label"], np.int64)),
+                   "weight": torch.from_numpy(np.asarray(padded["weight"], np.float32))}
+            if pin:
+                out = {k: v.pin_memory() for k, v in out.items()}
+            out = {k: v.to(device, non_blocking=pin) for k, v in out.items()}
+        yield out
 
 
 class StepTrainer:

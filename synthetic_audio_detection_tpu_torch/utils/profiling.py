@@ -6,8 +6,20 @@ package's ``utils/profiling.py``).
   Chrome trace (``*.pt.trace.json``, viewable in TensorBoard's profiler
   plugin or Perfetto) into ``logdir``; it yields the profiler, whose
   ``key_averages()`` sums the trace by name.
-- ``annotate(name)``: a named range (``torch.profiler.record_function``)
-  that nests into the trace.
+- ``span(name)``: a named range (``torch.profiler.record_function``) that
+  nests into the trace; with no profiler running it is one shared
+  ``nullcontext``, so a span costs one check. ``annotate`` is the same.
+  The port's ranges: ``serve.*`` in ``infer/pipeline.py`` (one request's
+  bucketing and padding, forward with its front end and backbone,
+  device-to-host read-back and decision) and ``train_step.*``
+  in ``train/steps.py``, ``train/joint.py`` and ``train/trainer.py``
+  (features, forward, backward, optimizer, and the feed of each batch).
+- ``count(name, n)``: adds to a process-wide table of ints, whether or not
+  a profiler runs; ``counters()`` returns a copy and ``reset_counters()``
+  clears it. The pipeline counts ``serve.batches``, ``serve.rows`` (the
+  buckets' rows, padding included) and ``serve.useful_rows``. A count is a
+  dict add without a lock: the daemon's dispatches, which run under
+  ``ServingState.dispatching()``'s lock, count one at a time.
 - ``StageTimer``: named wall-clock stages with EWMA smoothing for
   steady-state reporting (a copy of the reference's).
 """
@@ -21,6 +33,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Iterator
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 
 
 @contextlib.contextmanager
@@ -36,9 +49,36 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
         yield prof
 
 
-def annotate(name: str):
-    """Named host range that nests into profiler traces."""
+_OFF = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = {}
+
+
+def span(name: str):
+    """Named host range that nests into profiler traces; the shared null
+    context when no profiler is running. The check is the flag that
+    ``torch.profiler`` sets for the whole process: the thread-local
+    ``torch.autograd._profiler_enabled()`` reads False under a profiler
+    that records every thread (``profile_all_threads``)."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
+
+
+annotate = span
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name``."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the process-wide counters."""
+    return dict(_COUNTS)
+
+
+def reset_counters() -> None:
+    _COUNTS.clear()
 
 
 @dataclass

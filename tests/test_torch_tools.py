@@ -12,6 +12,11 @@ from synthetic_audio_detection_tpu_torch.tools import profile_serving as P
     ("void (anonymous namespace)::conv3x3_kernel<false>(...)", "conv kernel (K3)"),
     ("void (anonymous namespace)::conv3x3_wgmma_kernel<2, 64, false>(CUtensorMap_st, "
      "CUtensorMap_st, (anonymous namespace)::Params)", "conv kernel (K3)"),
+    # the bench's tile shapes, float32 out too: before the "conv" keys of cuDNN's kernels
+    ("void (anonymous namespace)::conv3x3_wgmma_kernel<1, 256, false>(CUtensorMap_st, "
+     "CUtensorMap_st, (anonymous namespace)::Params)", "conv kernel (K3)"),
+    ("void (anonymous namespace)::conv3x3_wgmma_kernel<2, 128, true>(CUtensorMap_st, "
+     "CUtensorMap_st, (anonymous namespace)::Params)", "conv kernel (K3)"),
     ("void (anonymous namespace)::pad_bf16_kernel<float>(...)", "K1 log-mel kernel"),
     ("(anonymous namespace)::dft_mel_kernel(CUtensorMap_st, CUtensorMap_st, "
      "(anonymous namespace)::Params)", "K1 log-mel kernel"),
