@@ -46,24 +46,36 @@ The forward itself makes no collective.
 program (the float32 GEMM mel and the plain backbone, no hand-written
 kernel), at the artifact's batch entries only.
 
+The host feed (``infer/feed.py``): each device batch's useful rows are
+written into a reused host slot (pinned on CUDA), copied into a reused
+device slot on a copy stream, and the bucket's padding rows are zeroed on
+the device. The dispatches look one batch ahead: once batch i's forward
+is launched, batch i+1 is staged and its copy launched, and only then is
+batch i read back, so the next batch's host write and copy overlap the
+forward on the card.
+
 Spans (``utils/profiling.span``, ranges in a profiler's trace, nothing
 without one): ``serve.request`` around ``analyze_windows``; in it, per
-device batch, ``serve.pad`` (slice, int16 quantize, the tail's zero
-block, the contiguous copy), then the host-to-device copy (no range of its
-own), ``serve.forward`` (``_forward``) with ``serve.frontend`` and
+device batch, ``serve.pad`` (the host staging: slice, int16 quantize, the
+write into the host slot), then the copy and the zero fill (no range of
+their own), ``serve.forward`` (``_forward``) with ``serve.frontend`` and
 ``serve.backbone`` inside ``forward_windows``, ``serve.d2h`` (the logits'
-read-back, which waits for the device); then ``serve.decide``
+read-back, which waits for the device), the next batch's ``serve.pad``
+falling between a forward and its read-back; then ``serve.decide``
 (calibration, sigmoid, decision, smoothing, the result). A generator's
 span opens and closes between two of its yields.
 Counters (``utils/profiling.count``): ``serve.batches``, ``serve.rows``
 (bucket rows, padding included) and ``serve.useful_rows``, per device
-batch.
+batch; ``serve.prefetched_batches``, the batches staged and copied while
+the previous batch's forward was in flight (all but each dispatch's
+first).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -84,11 +96,12 @@ from synthetic_audio_detection_tpu_torch.ensemble.multihead import (
     labels_from_indices,
     with_dtype,
 )
+from synthetic_audio_detection_tpu_torch.infer.feed import StagingRing
 from synthetic_audio_detection_tpu_torch.ops import melspec
 from synthetic_audio_detection_tpu_torch.ops.cuda_melspec import dequantize, serving_log_mel
 from synthetic_audio_detection_tpu_torch.ops.filters import gaussian_filter1d
 from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
-from synthetic_audio_detection_tpu_torch.parallel.sharding import pad_batch_to_multiple, shard_batch
+from synthetic_audio_detection_tpu_torch.parallel.sharding import DATA_AXIS, pad_batch_to_multiple
 from synthetic_audio_detection_tpu_torch.utils.profiling import count, span
 
 
@@ -226,6 +239,7 @@ class InferencePipeline:
         self.conv3x3_max_channels = conv3x3_max_channels if self.use_fast_backbone else 0
         self._bucket_sizes: Optional[List[int]] = None
         self._program = None
+        self._feed = StagingRing(self.device)
 
     @classmethod
     def from_artifact(cls, path_or_bytes, audio: Optional[AudioConfig] = None,
@@ -258,6 +272,7 @@ class InferencePipeline:
         self.transport_dtype = meta["transport_dtype"]
         self._bucket_sizes = sizes
         self._program = program
+        self._feed = StagingRing(self.device)
         return self
 
     def _forward(self, batch: torch.Tensor, return_per_head: bool = False):
@@ -324,29 +339,51 @@ class InferencePipeline:
     def _bucketed_batches(self, windows: np.ndarray, quantize: bool = True):
         """Yield (device batch padded to the bucket, rows to keep), with the
         int16 transport applied unless ``quantize`` is False; under a mesh
-        the device batch is this rank's rows of the bucket."""
+        the device batch is this rank's rows of the bucket. A yielded batch
+        stays valid until the consumer resumes the generator twice; the
+        work on the device that reads it is launched before the next resume
+        (``infer/feed.py``). Raises RuntimeError while another dispatch on
+        this pipeline is open."""
         num = windows.shape[0]
         bucket = self._bucket(num)
         pcm16 = quantize and self.transport_dtype == "int16" and windows.dtype != np.int16
-        i = 0
-        while i < num:
-            take = min(bucket, num - i)
-            with span("serve.pad"):
-                batch = windows[i : i + take]
-                if pcm16:
-                    batch = wavio.pcm16_quantize(batch)
-                if take < bucket:
-                    batch = np.concatenate(
-                        [batch, np.zeros((bucket - take, windows.shape[1]), batch.dtype)])
-                if self.mesh is not None:
-                    batch = shard_batch(self.mesh, {"w": batch})["w"]
-                batch = np.ascontiguousarray(batch)
-            batch = torch.from_numpy(batch).to(self.device)
-            count("serve.batches")
-            count("serve.rows", bucket)
-            count("serve.useful_rows", take)
-            yield batch, take
-            i += take
+        rows, first = bucket, 0
+        if self.mesh is not None:
+            rows = bucket // self.mesh.size(DATA_AXIS)
+            first = self.mesh.rows(rows)[0]
+        with self._feed.dispatch():
+            i = 0
+            while i < num:
+                take = min(bucket, num - i)
+                n = max(0, min(take, first + rows) - first)  # this rank's useful rows
+                with span("serve.pad"):
+                    part = windows[i + first : i + first + n]
+                    if pcm16:
+                        part = wavio.pcm16_quantize(part)
+                    part = torch.from_numpy(np.ascontiguousarray(part))
+                    slot = self._feed.host_slot(rows, windows.shape[1], part.dtype)
+                    slot.host[:n].copy_(part)
+                batch = self._feed.launch(slot, n)
+                count("serve.batches")
+                count("serve.rows", bucket)
+                count("serve.useful_rows", take)
+                yield batch, take
+                i += take
+
+    def _prefetched(self, windows: np.ndarray, forward, quantize: bool = True):
+        """Yield (``forward(device batch)``, rows to keep) per device batch,
+        one batch ahead: batch i+1 is staged and its copy launched after
+        batch i's forward is launched and before batch i is handed on for
+        its read-back."""
+        with contextlib.closing(self._bucketed_batches(windows, quantize)) as batches:
+            staged = next(batches, None)
+            while staged is not None:
+                batch, take = staged
+                out = forward(batch)
+                staged = next(batches, None)
+                if staged is not None:
+                    count("serve.prefetched_batches")
+                yield out, take
 
     def _whole_batch(self, agg: torch.Tensor, nh: Optional[torch.Tensor] = None):
         """Under a mesh: this rank's rows of the serving logits [R, N+1] (and
@@ -367,8 +404,7 @@ class InferencePipeline:
         if windows.shape[0] == 0:
             return np.zeros((0, self.ensemble.num_heads + 1), np.float32)
         out = []
-        for batch, take in self._bucketed_batches(windows):
-            agg = self._forward(batch)
+        for agg, take in self._prefetched(windows, self._forward):
             with span("serve.d2h"):
                 out.append(self._whole_batch(agg)[:take].float().cpu().numpy())
         return np.concatenate(out, axis=0)
@@ -383,8 +419,9 @@ class InferencePipeline:
             return np.zeros((0, n + 1), np.float32), np.zeros((0, n, 2), np.float32)
         self._refuse_artifact()
         agg_out, nh_out = [], []
-        for batch, take in self._bucketed_batches(windows):
-            agg, nh = self._whole_batch(*self._forward(batch, return_per_head=True))
+        forward = functools.partial(self._forward, return_per_head=True)
+        for both, take in self._prefetched(windows, forward):
+            agg, nh = self._whole_batch(*both)
             agg_out.append(agg[:take].float().cpu().numpy())
             nh_out.append(nh.float().cpu().numpy().transpose(1, 0, 2)[:take])
         return np.concatenate(agg_out, axis=0), np.concatenate(nh_out, axis=0)
@@ -401,11 +438,14 @@ class InferencePipeline:
             return (1.0 / (1.0 + np.exp(-logits_bn2))).astype(np.float32)
         self._refuse_artifact()
         ens32 = with_dtype(self.ensemble, torch.float32)
-        out = []
-        for batch, take in self._bucketed_batches(windows, quantize=False):
+
+        def forward(batch):
             with exact_float32():
-                agg, nh = forward_windows(ens32, batch, self.spec, self.audio.sample_rate,
-                                          return_per_head=True)
+                return forward_windows(ens32, batch, self.spec, self.audio.sample_rate,
+                                       return_per_head=True)
+
+        out = []
+        for (agg, nh), take in self._prefetched(windows, forward, quantize=False):
             _, nh = self._whole_batch(agg, nh)
             out.append(nh.cpu().numpy().transpose(1, 0, 2)[:take])
         probs = 1.0 / (1.0 + np.exp(-np.concatenate(out, axis=0)))

@@ -30,7 +30,8 @@ the device time per batch by part, largest first, and by the program's
 ``serve.*`` range (``infer/pipeline.py``) with its host time, and the
 program's feed counters over the traced batches (``serve.batches``, the
 bucket rows per device batch, the share of them that are windows and not
-padding), and with ``--out`` writes the same as JSON. It runs on CUDA only: without it, or with ``--device``
+padding, the share of the batches staged and copied while the batch before
+computed, ``serve.prefetched_batches``), and with ``--out`` writes the same as JSON. It runs on CUDA only: without it, or with ``--device``
 naming another device type, it exits non-zero.
 """
 
@@ -97,14 +98,17 @@ def kernel_us(e) -> float:
 
 def feed_counts(counts: Dict[str, int]) -> Dict[str, float]:
     """The serving feed's counters (``utils/profiling.count`` in
-    ``infer/pipeline.py``) → device batches, bucket rows per batch and the
-    share of those rows that are windows, in %; empty without batches."""
+    ``infer/pipeline.py``) → device batches, bucket rows per batch, the
+    share of those rows that are windows and the share of the batches that
+    were staged and copied while the batch before computed, in %; empty
+    without batches."""
     batches = counts.get("serve.batches", 0)
     if not batches:
         return {}
     rows = counts["serve.rows"]
     return {"device_batches": batches, "rows_per_device_batch": rows / batches,
-            "useful_row_share": 100.0 * counts["serve.useful_rows"] / rows}
+            "useful_row_share": 100.0 * counts["serve.useful_rows"] / rows,
+            "prefetched_share": 100.0 * counts.get("serve.prefetched_batches", 0) / batches}
 
 
 def busy_us(intervals: List[Tuple[float, float]]) -> float:
@@ -257,7 +261,8 @@ def main(argv=None) -> int:
             f = r["feed"]
             print(f"[profile] {route}:   serve.batches {f['device_batches']}, "
                   f"{f['rows_per_device_batch']:.1f} bucket rows a batch, "
-                  f"{f['useful_row_share']:.1f}% of them windows")
+                  f"{f['useful_row_share']:.1f}% of them windows, "
+                  f"{f['prefetched_share']:.1f}% of the batches prefetched")
         for name, ms in r["top_kernels_ms_per_batch"].items():
             print(f"[profile] {route}:     {ms:8.3f} ms  {classify(name):22s} {name[:100]}")
     if args.out:

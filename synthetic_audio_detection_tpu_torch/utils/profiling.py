@@ -17,9 +17,11 @@ package's ``utils/profiling.py``).
 - ``count(name, n)``: adds to a process-wide table of ints, whether or not
   a profiler runs; ``counters()`` returns a copy and ``reset_counters()``
   clears it. The pipeline counts ``serve.batches``, ``serve.rows`` (the
-  buckets' rows, padding included) and ``serve.useful_rows``. A count is a
-  dict add without a lock: the daemon's dispatches, which run under
-  ``ServingState.dispatching()``'s lock, count one at a time.
+  buckets' rows, padding included), ``serve.useful_rows`` and
+  ``serve.prefetched_batches`` (the batches staged while the batch before
+  computed). A count is a dict add without a lock: the daemon's
+  dispatches, which run under ``ServingState.dispatching()``'s lock, count
+  one at a time.
 - ``StageTimer``: named wall-clock stages with EWMA smoothing for
   steady-state reporting (a copy of the reference's).
 """

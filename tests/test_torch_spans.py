@@ -124,6 +124,11 @@ def test_serving_spans_nest_per_request_and_batch(served):
     # consumer's forward opens, and the read-back follows the forward
     for pad, fwd, d2h in zip(*(r[n] for n in ("serve.pad", "serve.forward", "serve.d2h"))):
         assert pad[1] <= fwd[0] and fwd[1] <= d2h[0]
+    # one batch ahead: in the 19-window request, the second batch is staged
+    # before the first one's logits are read back
+    last = r["serve.request"][2]
+    pads, d2hs = ([a for a in r[n] if inside(a, last)] for n in ("serve.pad", "serve.d2h"))
+    assert len(pads) == len(d2hs) == 2 and pads[1][0] < d2hs[0][0]
     for i, decide in enumerate(r["serve.decide"]):
         assert all(d2h[1] <= decide[0] for d2h in r["serve.d2h"] if d2h[0] < decide[0])
         assert i == 0 or r["serve.decide"][i - 1][1] <= decide[0]
@@ -131,18 +136,19 @@ def test_serving_spans_nest_per_request_and_batch(served):
 
 def test_serving_counters_count_the_device_batches_and_their_rows(served):
     """Per device batch: one batch, the bucket's rows and the clip's windows
-    in it; the profile tool reads batches, rows a batch and the share that
-    are windows from them."""
+    in it, and one prefetched batch for each batch after a request's first;
+    the profile tool reads batches, rows a batch, the share that are windows
+    and the share prefetched from them."""
     pipe, clips = served
     profiling.reset_counters()
     for windows, stamps in clips:
         pipe.analyze_windows(windows, stamps)
     counts = profiling.counters()
     assert counts == {"serve.batches": 4, "serve.rows": 8 + 16 + 16 + 16,
-                      "serve.useful_rows": sum(CLIPS)}
+                      "serve.useful_rows": sum(CLIPS), "serve.prefetched_batches": 1}
     assert profile_serving.feed_counts(counts) == pytest.approx(
         {"device_batches": 4, "rows_per_device_batch": 14.0,
-         "useful_row_share": 100.0 * sum(CLIPS) / 56})
+         "useful_row_share": 100.0 * sum(CLIPS) / 56, "prefetched_share": 25.0})
 
 
 @pytest.mark.parametrize("counts", [{}, {"serve.rows": 0}, {"serve.batches": 0}],
