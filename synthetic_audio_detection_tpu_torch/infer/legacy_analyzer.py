@@ -11,7 +11,8 @@ Feature set:
   k=5 → low-confidence windows fall back to the majority class
 - run-length merge of equal-label windows, kept when their mean confidence
   is ≥ 0.45; segments carry a confidence field
-- batch-folder mode
+- batch-folder mode, and ``analyze_waveform`` for audio already in memory
+  (the reference script's in-memory entry)
 
 The forward is the reference's: the float32 GEMM log-mel with the Slaney
 mel norm, channel replication, the 5-output ``BinaryClassifier`` in
@@ -21,6 +22,18 @@ changes only the features' dtype, as in the reference, whose float32
 model then computes on the bf16-rounded features. The smoothing, median,
 fallback and segments run on the host in numpy. The analyzer runs on the
 GPU unless the caller passes ``device="cpu"``.
+
+Ranges (``utils/profiling.span``): ``legacy.request`` (one
+``analyze_waveform`` call) ⊃ ``legacy.prepare`` (mono fold, resample, the
+short clip's pad, normalization), ``legacy.window`` (overlap slicing, the
+silence gate, the stack), per batch ``legacy.pad`` (host padding and the
+copy to the device) and ``legacy.forward`` (⊃ ``legacy.frontend``: log-mel
+and channel replication; ``legacy.backbone``: the classifier and the
+softmax), ``legacy.d2h``, then ``legacy.smooth`` (smoothing, median,
+fallback, segments, percentages). Counters (``utils/profiling.count``):
+``legacy.windows`` (windows analyzed), ``legacy.silent_windows`` (windows
+the gate dropped), ``legacy.batches`` and ``legacy.rows`` (rows
+dispatched, padding included).
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ from synthetic_audio_detection_tpu_torch.ops import melspec
 from synthetic_audio_detection_tpu_torch.ops.filters import gaussian_filter1d, median_filter1d
 from synthetic_audio_detection_tpu_torch.ops.precision import exact_float32
 from synthetic_audio_detection_tpu_torch.utils.config import SpectrogramConfig
+from synthetic_audio_detection_tpu_torch.utils.profiling import count, span
 
 DEFAULT_CLASSES = ["Class1", "Class2", "Class3", "Class4", "Class5"]
 
@@ -105,19 +119,30 @@ class LegacyAudioAnalyzer:
     def _forward(self, windows: torch.Tensor) -> torch.Tensor:
         """[B, T] → [B, C] float32 softmax probabilities."""
         with exact_float32():
-            feats = melspec.log_mel_features(windows, self.spec_cfg, self.audio.target_sample_rate,
-                                             use_gemm_dft=True, out_dtype=self.compute_dtype)
-            x = melspec.replicate_channels(feats, 3).float()
-            return torch.softmax(self.model(x).float(), dim=-1)
+            with span("legacy.frontend"):
+                feats = melspec.log_mel_features(windows, self.spec_cfg,
+                                                 self.audio.target_sample_rate,
+                                                 use_gemm_dft=True, out_dtype=self.compute_dtype)
+                x = melspec.replicate_channels(feats, 3).float()
+            with span("legacy.backbone"):
+                return torch.softmax(self.model(x).float(), dim=-1)
 
     # -- preprocessing -------------------------------------------------------
 
     def preprocess(self, path: str) -> np.ndarray:
         from synthetic_audio_detection_tpu_torch.audio.decode import load_audio
+
+        return self.prepare(*load_audio(path))
+
+    def prepare(self, waveform, sr: int) -> np.ndarray:
+        """A decoded waveform ([channels, samples], or [samples] for mono;
+        numpy or a CPU tensor) at ``sr`` Hz → the analyzer's mono float32
+        input: channels averaged, resampled to the target rate, a clip
+        shorter than one window zero-padded to 5 s, normalized."""
         from synthetic_audio_detection_tpu_torch.audio.resample import resample_poly_np
 
-        wf, sr = load_audio(path)
-        mono = wf.mean(axis=0)
+        wf = np.asarray(waveform)
+        mono = wf.mean(axis=0) if wf.ndim > 1 else wf
         if sr != self.audio.target_sample_rate:
             mono = resample_poly_np(mono, sr, self.audio.target_sample_rate)
         seconds = mono.shape[0] / self.audio.target_sample_rate
@@ -132,18 +157,22 @@ class LegacyAudioAnalyzer:
 
     def windows(self, waveform: np.ndarray) -> Tuple[np.ndarray, List[float]]:
         win, hop = self.audio.window_samples, self.audio.hop_samples
-        chunks, stamps = [], []
-        for s in range(0, max(len(waveform) - win + 1, 1), hop):
-            seg = waveform[s : s + win]
-            if seg.shape[0] < win:
-                break
-            if np.abs(seg).max() < self.audio.silence_threshold:
-                continue
-            chunks.append(seg)
-            stamps.append(s / self.audio.target_sample_rate)
-        if not chunks:
-            return np.zeros((0, win), np.float32), []
-        return np.stack(chunks), stamps
+        chunks, stamps, silent = [], [], 0
+        with span("legacy.window"):
+            for s in range(0, max(len(waveform) - win + 1, 1), hop):
+                seg = waveform[s : s + win]
+                if seg.shape[0] < win:
+                    break
+                if np.abs(seg).max() < self.audio.silence_threshold:
+                    silent += 1
+                    continue
+                chunks.append(seg)
+                stamps.append(s / self.audio.target_sample_rate)
+            count("legacy.windows", len(chunks))
+            count("legacy.silent_windows", silent)
+            if not chunks:
+                return np.zeros((0, win), np.float32), []
+            return np.stack(chunks), stamps
 
     # -- inference -----------------------------------------------------------
 
@@ -153,18 +182,24 @@ class LegacyAudioAnalyzer:
         out = []
         bs = self.audio.batch_size
         for i in range(0, windows.shape[0], bs):
-            batch = windows[i : i + bs]
-            # the reference's padding: at least min(bs, 8) rows, else a
-            # multiple of 8
-            pad = 0
-            if batch.shape[0] < min(bs, 8):
-                pad = min(bs, 8) - batch.shape[0]
-            elif batch.shape[0] % 8:
-                pad = 8 - batch.shape[0] % 8
-            if pad:
-                batch = np.concatenate([batch, np.zeros((pad, batch.shape[1]), batch.dtype)])
-            x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(self.device)
-            probs = self._forward(x).cpu().numpy()
+            with span("legacy.pad"):
+                batch = windows[i : i + bs]
+                # the reference's padding: at least min(bs, 8) rows, else a
+                # multiple of 8
+                pad = 0
+                if batch.shape[0] < min(bs, 8):
+                    pad = min(bs, 8) - batch.shape[0]
+                elif batch.shape[0] % 8:
+                    pad = 8 - batch.shape[0] % 8
+                if pad:
+                    batch = np.concatenate([batch, np.zeros((pad, batch.shape[1]), batch.dtype)])
+                x = torch.from_numpy(np.ascontiguousarray(batch, np.float32)).to(self.device)
+            count("legacy.batches")
+            count("legacy.rows", x.shape[0])
+            with span("legacy.forward"):
+                probs = self._forward(x)
+            with span("legacy.d2h"):
+                probs = probs.cpu().numpy()
             out.append(probs[: probs.shape[0] - pad if pad else None])
         probs = np.concatenate(out, axis=0)
         factors = np.array([self.sensitivity_factors.get(c.lower(), 1.0) for c in self.classes],
@@ -211,15 +246,27 @@ class LegacyAudioAnalyzer:
             idx += 1
         return segments
 
+    def analyze_waveform(self, waveform, sample_rate: int) -> Dict[str, Any]:
+        """Audio already in memory (``prepare``'s input) → {'percentages',
+        'segments'}, as ``analyze_audio`` gives for a file."""
+        with span("legacy.request"):
+            with span("legacy.prepare"):
+                mono = self.prepare(waveform, sample_rate)
+            windows, stamps = self.windows(mono)
+            if windows.shape[0] == 0:
+                return {"percentages": {c: 0.0 for c in self.classes}, "segments": []}
+            probs = self.probabilities(windows)
+            with span("legacy.smooth"):
+                preds, smoothed = self.smooth_predictions(probs)
+                segments = self.confident_segments(stamps, preds, smoothed)
+                percentages = {c: round(float(smoothed[:, i].mean()) * 100.0, 2)
+                               for i, c in enumerate(self.classes)}
+            return {"percentages": percentages, "segments": segments}
+
     def analyze_audio(self, path: str) -> Dict[str, Any]:
-        windows, stamps = self.windows(self.preprocess(path))
-        if windows.shape[0] == 0:
-            return {"percentages": {c: 0.0 for c in self.classes}, "segments": []}
-        preds, smoothed = self.smooth_predictions(self.probabilities(windows))
-        segments = self.confident_segments(stamps, preds, smoothed)
-        percentages = {c: round(float(smoothed[:, i].mean()) * 100.0, 2)
-                       for i, c in enumerate(self.classes)}
-        return {"percentages": percentages, "segments": segments}
+        from synthetic_audio_detection_tpu_torch.audio.decode import load_audio
+
+        return self.analyze_waveform(*load_audio(path))
 
     def analyze_batch(self, folder: str) -> Dict[str, Dict[str, Any]]:
         """Folder mode: every .wav in ``folder``, by name."""
