@@ -17,15 +17,22 @@ whose epilogue applies the affine and the ReLU in float32 and rounds once:
   1x1, pad-0 conv reads at the same stride, and the other eight taps add
   exact zeros, so the result is the 1x1 conv's.
 
-Every other conv (the 7x7 stem, whose three input channels the kernel does
-not take, and any conv above the knob) is ``cuda_conv.conv_bn_relu_plain``:
-a float32 conv of the rounded operands with TF32 off, the counterpart of
-the reference's ``lax.conv`` branch. Both ways compute the same function;
-only the float32 summation order inside a conv differs.
+Above 0 the knob also sends the stem (the 7x7 stride-2 conv of 1 or 3
+input channels, its BN, max-pool and ReLU) through the hand-written stem
+kernel (``ops/cuda_stem.py``): the same products and affine, one rounding
+to bf16, then the max-pool, with no intermediate in device memory. A
+broadcast input (below) is one plane to the kernel, convolved with each
+channel's own weight.
+
+Every other conv (any conv above the knob, and every conv at knob 0) is
+``cuda_conv.conv_bn_relu_plain``: a float32 conv of the rounded operands
+with TF32 off, the counterpart of the reference's ``lax.conv`` branch. All
+ways compute the same function; only the float32 summation order inside a
+conv differs.
 
 The serving input repeats one log-mel plane on three channels as a
 broadcast view (``melspec.replicate_channels``: stride 0 on the channel
-axis). For such an input the stem convolves the one plane with its
+axis). For such an input the knob-0 stem convolves the one plane with its
 bf16-rounded weight summed over the three input channels in float32: a
 third of the products. The sum of three bf16 weights is exact in float32
 unless their exponents lie far apart, and so is its product with a bf16
@@ -47,7 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from synthetic_audio_detection_tpu_torch.models.resnet import ResNet
-from synthetic_audio_detection_tpu_torch.ops import cuda_conv
+from synthetic_audio_detection_tpu_torch.ops import cuda_conv, cuda_stem
 
 
 @dataclass
@@ -92,6 +99,24 @@ class PlainConv:
 Conv = Union[KernelConv, PlainConv]
 
 
+@dataclass
+class KernelStem:
+    """The stem conv + eval BN, its max-pool and its ReLU through
+    ``cuda_stem.stem_pool``."""
+
+    weight: torch.Tensor  # [64, C, 7, 7] bf16
+    packed: torch.Tensor  # cuda_stem.pack_weight(weight)
+    scale: torch.Tensor   # [64] float32
+    bias: torch.Tensor    # [64] float32
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] > 1 and x.stride(1) == 0:  # one plane on every channel: keep it one
+            x = x[:, :1].to(torch.bfloat16).expand(x.shape)
+        x = cuda_stem.contiguous_planes(x.to(torch.bfloat16))
+        y = cuda_stem.stem_pool(x, self.weight, self.scale, self.bias, self.packed)
+        return y.permute(0, 3, 1, 2)  # NHWC → channels_last [B, 64, Hp, Wp]
+
+
 def bn_affine(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval BN as (scale, bias) in float32."""
     alpha = bn.weight / torch.sqrt(bn.running_var + bn.eps)
@@ -122,6 +147,14 @@ def kernel_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, relu: bool) -> KernelCon
     alpha, beta = bn_affine(bn)
     return KernelConv(w.contiguous(), alpha.float().contiguous(), beta.float().contiguous(),
                       conv.stride[0], relu)
+
+
+@torch.no_grad()
+def kernel_stem(conv: nn.Conv2d, bn: nn.BatchNorm2d) -> KernelStem:
+    weight = conv.weight.to(torch.bfloat16).contiguous()
+    alpha, beta = bn_affine(bn)
+    return KernelStem(weight, cuda_stem.pack_weight(weight), alpha.float().contiguous(),
+                      beta.float().contiguous())
 
 
 @dataclass
@@ -160,6 +193,9 @@ class FastResNet:
 
         # the stem's ReLU runs after the max-pool, on a quarter of the
         # pixels: both are monotone, so the two orders give the same values
+        self.kernel_stem = (kernel_stem(backbone.conv1, backbone.bn1)
+                            if conv3x3_max_channels > 0
+                            and backbone.conv1.in_channels in cuda_stem.CHANNELS else None)
         self.stem = plain_conv_bn(backbone.conv1, backbone.bn1, dtype, relu=False)
         self.stem_one_plane = plain_conv_bn(backbone.conv1, backbone.bn1, dtype, relu=False,
                                             sum_input_channels=True)
@@ -179,6 +215,8 @@ class FastResNet:
     def stem_pool(self, x: torch.Tensor) -> torch.Tensor:
         """The stem, its max-pool and its ReLU: [B, C, H, W] → the first
         block's input."""
+        if self.kernel_stem is not None:
+            return self.kernel_stem(x)
         stem = self.stem
         if x.shape[1] > 1 and x.stride(1) == 0:  # one plane on every channel
             x, stem = x[:, :1], self.stem_one_plane

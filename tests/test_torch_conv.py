@@ -1,6 +1,6 @@
-"""The port's 3x3 conv + BN + ReLU (ops/cuda_conv.py, ops/cuda_conv_flat.py)
-and the fast backbone that routes through it, against the JAX package, on
-the CPU.
+"""The port's 3x3 conv + BN + ReLU (ops/cuda_conv.py, ops/cuda_conv_flat.py),
+its stem conv + BN + max-pool + ReLU (ops/cuda_stem.py) and the fast
+backbone that routes through them, against the JAX package, on the CPU.
 
 On the CPU each entry runs the kernel's plain version. The JAX entries run
 their Pallas kernels in interpret mode. Both sides round x and w to bf16,
@@ -39,7 +39,7 @@ from synthetic_audio_detection_tpu_torch.models.fast_resnet import (
     plain_conv_bn,
 )
 from synthetic_audio_detection_tpu_torch.models.resnet import create_resnet
-from synthetic_audio_detection_tpu_torch.ops import build, cuda_conv, cuda_conv_flat
+from synthetic_audio_detection_tpu_torch.ops import build, cuda_conv, cuda_conv_flat, cuda_stem
 
 BF16_ULP = 2.0 ** -7  # relative spacing of bf16 at the bottom of a binade
 NAMES = ["SynA", "SynB", "Real"]
@@ -193,6 +193,196 @@ def test_entries_raise_on_what_the_kernel_does_not_take(case):
 
 
 # ---------------------------------------------------------------------------
+# The stem entry: the 7x7/2 conv, BN affine, max-pool and ReLU
+# ---------------------------------------------------------------------------
+
+def _stem_inputs(B, C, H, W, seed):
+    """A bf16 input plane stack, a He-scaled [64, C, 7, 7] weight and a BN
+    affine, from numpy."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((B, C, H, W)) * 0.5).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((64, C, 7, 7)) * (2.0 / (49 * C)) ** 0.5)
+                         .astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, 64).astype(np.float32))
+    bias = torch.from_numpy((rng.standard_normal(64) * 0.1).astype(np.float32))
+    return x.to(torch.bfloat16), w, scale, bias
+
+
+def _stem_jax(x, w, scale, bias):
+    """The reference: JAX _conv_bn on the stem (stride 2, ReLU) in bf16, then
+    its 3x3 stride-2 reduce_window max (models/fast_resnet.py:151, :153);
+    x is the materialized [B, C, H, W] input."""
+    p = {"kernel": jnp.asarray(w.permute(2, 3, 1, 0).numpy())}
+    bn_p = {"scale": jnp.asarray(scale.numpy()), "bias": jnp.zeros(64, jnp.float32)}
+    bn_s = {"mean": jnp.asarray((-bias / scale).numpy()),
+            "var": jnp.full(64, 1.0 - JF.BN_EPS, jnp.float32)}
+    y = JF._conv_bn(jnp.asarray(x.float().permute(0, 2, 3, 1).numpy()), p, bn_p, bn_s, 2, True,
+                    0, jnp.bfloat16)
+    return jax.lax.reduce_window(y, -jnp.inf, jax.lax.max, (1, 3, 3, 1), (1, 2, 2, 1),
+                                 ((0, 0), (1, 1), (1, 1), (0, 0)))
+
+
+STEM_SIDES = [(2, 64, 64), (1, 37, 50), (1, 128, 251)]
+
+
+@pytest.mark.parametrize("B,H,W", STEM_SIDES)
+@pytest.mark.parametrize("layout", ["one_plane", "three_channels", "mono"])
+def test_stem_pool_plain_matches_jax(B, H, W, layout):
+    """The entry's plain version (what a CPU tensor runs) against the
+    reference's stem in bf16 at even, odd and native sides: on one plane
+    repeated as a broadcast view, on three channels, and on one channel.
+    Both sides form every bf16 product exactly in float32 and sum in float32
+    in different orders, so outputs agree to one bf16 ulp."""
+    C = 1 if layout == "mono" else 3
+    x, w, scale, bias = _stem_inputs(B, C, H, W, seed=30 + H)
+    if layout == "one_plane":
+        x = x[:, :1].expand(B, 3, H, W)
+        assert x.stride(1) == 0
+    # the reference's BN: bn_affine of (scale, 0, -bias/scale, 1 - eps)
+    # rounds; take the port's scale and bias from the same statistics
+    alpha = scale / torch.sqrt(torch.full((64,), 1.0 - JF.BN_EPS) + JF.BN_EPS)
+    beta = torch.zeros(64) - (-bias / scale) * alpha
+    ref = _stem_jax(x.contiguous(), w, scale, bias)
+    got = cuda_stem.stem_pool(x, w, alpha, beta)
+    Hp, Wp = cuda_stem.out_sizes(H, W)[2:]
+    assert got.shape == (B, Hp, Wp, 64) and got.dtype == torch.bfloat16 and got.is_contiguous()
+    _close(got, ref, torch.bfloat16)
+
+
+def _bad_stem_calls():
+    x, w, scale, bias = _stem_inputs(1, 3, 16, 16, seed=1)
+    return {
+        "float32_input": ((x.float(), w, scale, bias), "bfloat16"),
+        "meta_device": ((x.to("meta"), w.to("meta"), scale.to("meta"), bias.to("meta")),
+                        "device"),
+        "two_channels": ((x[:, :2], w[:, :2], scale, bias), "1 or 3"),
+        "channels_last_planes": ((x.contiguous(memory_format=torch.channels_last), w, scale, bias),
+                                 "planes must be contiguous"),
+        "transposed_planes": ((x.transpose(2, 3), w, scale, bias), "planes must be contiguous"),
+        "filters": ((x, w[:32], scale[:32], bias[:32]), r"\[64, 3, 7, 7\]"),
+        "weight_channels": ((x, w[:, :1], scale, bias), r"\[64, 3, 7, 7\]"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_stem_calls()))
+def test_stem_entry_raises_on_what_the_kernel_does_not_take(case):
+    """The entry checks on every device what the kernel takes (bf16 input,
+    1 or 3 channels of contiguous planes, the stem's [64, C, 7, 7] weight),
+    so the CPU path accepts exactly what the card does."""
+    args, match = _bad_stem_calls()[case]
+    with pytest.raises(ValueError, match=match):
+        cuda_stem.stem_pool(*args)
+
+
+def test_contiguous_planes_keeps_one_plane_one():
+    x, _, _, _ = _stem_inputs(2, 1, 8, 8, seed=2)
+    view = x.expand(2, 3, 8, 8)
+    assert cuda_stem.contiguous_planes(view) is view
+    odd = x.transpose(2, 3).expand(2, 3, 8, 8)
+    fixed = cuda_stem.contiguous_planes(odd)
+    assert fixed.stride(1) == 0 and fixed.stride(3) == 1 and torch.equal(fixed, odd)
+    cl = cuda_stem.contiguous_planes(odd.contiguous(memory_format=torch.channels_last))
+    assert cl.stride(1) == 64 and torch.equal(cl, odd)
+
+
+# (H, W): 512² serving, the 256² fast mode, native 128 mels × 251 frames,
+# and odd sides whose last tiles are ragged in both directions
+STEM_PLANS = [(512, 512), (256, 256), (128, 251), (37, 50), (1, 1), (9, 7), (65, 33)]
+
+
+@pytest.mark.parametrize("H,W", STEM_PLANS)
+def test_stem_tile_plan_covers_every_pooled_output(H, W):
+    """The tiles cover the pooled output exactly once: the last tile of each
+    row and column holds at least one pooled output, and at 512², 256² and
+    native size every tile is whole but the native last column's."""
+    Ho, Wo, Hp, Wp = cuda_stem.out_sizes(H, W)
+    assert (Ho, Hp) == ((H - 1) // 2 + 1, (Ho - 1) // 2 + 1)  # torch's conv and pool sizes
+    assert (Wo, Wp) == ((W - 1) // 2 + 1, (Wo - 1) // 2 + 1)
+    th, tw, nth, ntw = cuda_stem.tile_plan(H, W)
+    assert (th, tw) == cuda_stem.TILE
+    assert (nth - 1) * th < Hp <= nth * th and (ntw - 1) * tw < Wp <= ntw * tw
+    if (H, W) in ((512, 512), (256, 256)):
+        assert Hp % th == 0 and Wp % tw == 0
+    if (H, W) == (128, 251):
+        assert (Hp, Wp, nth, ntw) == (32, 63, 4, 4)
+
+
+def _emulate_stem_tiles(x, w, scale, bias):
+    """The kernel's tiling in plain torch: each tile's input patch from the
+    origin tile_plan states, A rows built as the kernel builds them from
+    the packed weight's k order (k = c·56 + dy·8 + dx, dx 7 and the tail
+    zero), the products summed exactly (float64) and rounded to float32, the
+    affine, one bf16 rounding, −inf outside the conv's output, the pool over
+    the tile's conv pixels, the ReLU, the ragged edge cropped."""
+    B, C, H, W = x.shape
+    Ho, Wo, Hp, Wp = cuda_stem.out_sizes(H, W)
+    th, tw, nth, ntw = cuda_stem.tile_plan(H, W)
+    CH, CW, PR, PC = 2 * th + 1, 2 * tw + 1, 4 * th + 7, 4 * tw + 8
+    packed = cuda_stem.pack_weight(w).double()
+    k = torch.arange(packed.shape[1])
+    plane, dy, dx = (k // 56).clamp(max=x.shape[1] - 1), (k % 56) // 8, k % 8
+    live = ((dx < 7) & (k < 56 * C)).double()
+    r, c = torch.arange(CH).repeat_interleave(CW), torch.arange(CW).repeat(CH)
+    rows, cols = 2 * r[:, None] + dy, 2 * c[:, None] + dx
+    pad = 8
+    xp = torch.nn.functional.pad(x.double(), (pad, 4 * ntw * tw + 16 - W,
+                                              pad, 4 * nth * th + 16 - H))
+    out = torch.empty(B, Hp, Wp, 64, dtype=torch.bfloat16)
+    for ti in range(nth):
+        for tj in range(ntw):
+            p0, q0 = ti * th, tj * tw
+            y0, x0 = 4 * p0 - 5 + pad, 4 * q0 - 5 + pad
+            patch = xp[:, :, y0:y0 + PR, x0:x0 + PC]
+            a = patch[:, plane, rows, cols] * live  # [B, CH·CW, K]
+            acc = (a @ packed.T).float()
+            y = (acc * scale + bias).to(torch.bfloat16).float()
+            i, j = 2 * p0 - 1 + r, 2 * q0 - 1 + c
+            inside = (i >= 0) & (i < Ho) & (j >= 0) & (j < Wo)
+            y = torch.where(inside[None, :, None], y, torch.tensor(float("-inf")))
+            pooled = torch.relu(torch.nn.functional.max_pool2d(
+                y.reshape(B, CH, CW, 64).permute(0, 3, 1, 2), 3, 2))
+            ph, pw = min(th, Hp - p0), min(tw, Wp - q0)
+            out[:, p0:p0 + ph, q0:q0 + pw] = pooled.permute(0, 2, 3, 1)[:, :ph, :pw].to(
+                torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("H,W", [(37, 50), (128, 251), (9, 7), (64, 64)])
+@pytest.mark.parametrize("layout", ["one_plane", "three_channels", "mono"])
+def test_stem_tiles_emulated_match_plain_version(H, W, layout):
+    """The kernel's tile geometry, patch origins, A-row layout, weight
+    packing and −inf masking, emulated in plain torch, against the entry's
+    plain version: within one bf16 ulp (the summation orders differ), and
+    at most 0.1% of the outputs not bit-equal."""
+    C = 1 if layout == "mono" else 3
+    x, w, scale, bias = _stem_inputs(2, C, H, W, seed=40 + W)
+    if layout == "one_plane":
+        x = x[:, :1].expand(2, 3, H, W)
+    got = _emulate_stem_tiles(x, w, scale, bias)
+    ref = cuda_stem.stem_pool(x, w, scale, bias)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=BF16_ULP, atol=1e-6)
+    assert (got != ref).float().mean() <= 1e-3
+
+
+def test_stem_pack_weight_layout():
+    """pack_weight's k order: c·56 + dy·8 + dx, a zero at dx 7, K padded to a
+    multiple of 16 (64 for one channel, 176 for three)."""
+    for C, K in ((1, 64), (3, 176)):
+        w = torch.arange(64 * C * 49, dtype=torch.float32).reshape(64, C, 7, 7)
+        packed = cuda_stem.pack_weight(w)
+        assert packed.shape == (64, K) and packed.dtype == torch.bfloat16
+        assert packed.is_contiguous()
+        body = packed[:, :56 * C].reshape(64, C, 7, 8)
+        assert torch.equal(body[..., :7], w.to(torch.bfloat16)) and not body[..., 7].any()
+        assert not packed[:, 56 * C:].any()
+
+
+def test_stem_source_is_in_the_checkout():
+    assert cuda_stem.SOURCE.endswith(f"csrc/{cuda_stem.LIBRARY}.cu")
+    assert (build.CSRC_DIR / f"{cuda_stem.LIBRARY}.cu").exists()
+
+
+# ---------------------------------------------------------------------------
 # The slice: the fast backbone, its convs through the kernel entry or not
 # ---------------------------------------------------------------------------
 
@@ -233,17 +423,21 @@ def test_conv_gate_follows_input_channels(jax_vars):
     """conv3x3_max_channels is gemm_max_channels' gate: a 3x3 conv or a 1x1
     downsample with at most that many input channels takes the kernel; 0
     takes none, 512 all sixteen 3x3 convs and three downsamples of
-    ResNet-18's; the 7x7 stem never does."""
+    ResNet-18's; the 7x7 stem never takes the conv kernel, and takes the
+    stem kernel at any knob above 0 (the knob-0 plain stem stays beside
+    it)."""
     net = _port_backbone(jax_vars)
 
     def routed(knob):
         fast = FastResNet(net, torch.bfloat16, conv3x3_max_channels=knob)
         convs = [c for blk in fast.blocks for c in blk.convs + [blk.downsample] if c is not None]
-        return sum(isinstance(c, KernelConv) for c in convs), isinstance(fast.stem, PlainConv)
+        return (sum(isinstance(c, KernelConv) for c in convs), isinstance(fast.stem, PlainConv),
+                fast.kernel_stem is not None)
 
-    assert routed(0) == (0, True)
-    assert routed(64) == (6, True)  # layer1's four, layer2.0.conv1 and layer2.0's downsample
-    assert routed(512) == (19, True)
+    assert routed(0) == (0, True, False)
+    assert routed(64) == (6, True, True)  # layer1's four, layer2.0.conv1 and its downsample
+    assert routed(512) == (19, True, True)
+    assert FastResNet(net, torch.float32).kernel_stem is None
     with pytest.raises(ValueError, match="bfloat16"):
         FastResNet(net, torch.float32, conv3x3_max_channels=512)
 
@@ -327,12 +521,19 @@ def test_fast_backbone_plain_route_matches_jax(backbone_refs):
 
 
 def test_fast_backbone_one_plane_stem_matches_jax(one_plane_refs):
-    """An input that repeats one plane as a broadcast view takes the stem's
-    channel-summed weight (a third of the products; the sum of three bf16
-    weights and its products with bf16 values exact in float32 but for
-    rare wide exponent spreads): the same bounds against the reference on
-    the materialized input."""
+    """An input that repeats one plane as a broadcast view: at knob 512 the
+    stem entry reads the plane once and convolves it with each channel's
+    own weight. The same bounds against the reference on the materialized
+    input."""
     _assert_backbone_matches(one_plane_refs, 512, one_plane=True)
+
+
+def test_fast_backbone_one_plane_plain_stem_matches_jax(one_plane_refs):
+    """At knob 0 a broadcast input takes the stem's channel-summed weight (a
+    third of the products; the sum of three bf16 weights and its products
+    with bf16 values exact in float32 but for rare wide exponent spreads):
+    the same bounds."""
+    _assert_backbone_matches(one_plane_refs, 0, one_plane=True)
 
 
 @pytest.mark.parametrize("stride", [1, 2])

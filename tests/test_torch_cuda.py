@@ -23,6 +23,7 @@ from synthetic_audio_detection_tpu_torch.ops import (
     cuda_melspec,
     cuda_melspec_strip,
     cuda_probes,
+    cuda_stem,
     melspec,
 )
 from synthetic_audio_detection_tpu_torch.tools import helper_bisect
@@ -442,26 +443,124 @@ def _seeded_ensemble(seed=0, heads=2):
 @pytest.mark.cuda
 def test_fast_backbone_routes_agree_on_the_card():
     """Full-depth ResNet-18 at 64², bf16: the kernel route (knob 512, 19
-    launches: sixteen 3x3 convs and three downsamples) against the knob-0
-    route (every conv the plain composition). The same function; only the
-    float32 summation order inside each conv differs, so the bounds are the
-    CPU tests' against the reference (tests/test_torch_conv.py)."""
+    conv-kernel launches: sixteen 3x3 convs and three downsamples; one
+    stem-kernel launch) against the knob-0 route (every conv the plain
+    composition). The same function; only the float32 summation order
+    inside each conv differs, so the bounds are the CPU tests' against the
+    reference (tests/test_torch_conv.py)."""
     _cuda_or_skip()
     net = _seeded_ensemble().backbones[0].cuda()
     x = torch.from_numpy((np.random.default_rng(11).standard_normal((2, 3, 64, 64)) * 0.4)
                          .astype(np.float32)).cuda()
-    before = cuda_conv.KERNEL.launches
+    before, stem = cuda_conv.KERNEL.launches, cuda_stem.KERNEL.launches
     got = FastResNet(net, torch.bfloat16, 512)(x)
     torch.cuda.synchronize()
     assert cuda_conv.KERNEL.launches == before + 19
+    assert cuda_stem.KERNEL.launches == stem + 1
     ref = FastResNet(net, torch.bfloat16, 0)(x)
     torch.cuda.synchronize()
     assert cuda_conv.KERNEL.launches == before + 19
+    assert cuda_stem.KERNEL.launches == stem + 1
     got, ref = got.float(), ref.float()
     d = (got - ref).abs()
     assert float(d.mean() / ref.abs().mean()) < 2e-3
     assert float((d <= 2.0 ** -5 * ref.abs() + 1e-3).float().mean()) >= 0.998
     assert float(torch.corrcoef(torch.stack([got.ravel(), ref.ravel()]))[0, 1]) > 0.99999
+
+
+# ---------------------------------------------------------------------------
+# The stem kernel
+# ---------------------------------------------------------------------------
+
+def _stem_inputs(B, H, W, layout, seed=12):
+    """bf16 input in one of the entry's layouts (one plane repeated as a
+    stride-0 view, three NCHW channels at channel stride H·W, one channel),
+    a He-scaled [64, C, 7, 7] weight and a BN affine, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C = 1 if layout == "mono" else 3
+    x = (0.5 * torch.randn(B, C, H, W, generator=g, device="cuda")).to(torch.bfloat16)
+    if layout == "one_plane":
+        x = x[:, :1].expand(B, 3, H, W)
+    w = torch.randn(64, C, 7, 7, generator=g, device="cuda") * (2.0 / (49 * C)) ** 0.5
+    scale = 0.5 + torch.rand(64, generator=g, device="cuda")
+    bias = 0.1 * torch.randn(64, generator=g, device="cuda")
+    return x, w, scale, bias
+
+
+STEM_LAYOUTS = ["one_plane", "three_channels", "mono"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W", [(128, 512, 512), (128, 256, 256), (128, 128, 251),
+                                   (8, 512, 512)])
+@pytest.mark.parametrize("layout", STEM_LAYOUTS)
+def test_stem_kernel_matches_plain_version(B, H, W, layout):
+    """The stem kernel against its plain version at the serving sizes (512²,
+    the 256² fast mode, native 128 × 251) and batches: the same bf16
+    products summed in float32 in another order, so every element within
+    one bf16 ulp and at most 0.1% of them not bit-equal. One launch."""
+    _cuda_or_skip()
+    x, w, scale, bias = _stem_inputs(B, H, W, layout)
+    assert (x.stride(1) == 0) == (layout == "one_plane")
+    before = cuda_stem.KERNEL.launches
+    got = cuda_stem.stem_pool(x, w, scale, bias)
+    torch.cuda.synchronize()
+    assert cuda_stem.KERNEL.launches == before + 1
+    ref = cuda_stem.stem_pool_plain(x, w, scale, bias)
+    Hp, Wp = cuda_stem.out_sizes(H, W)[2:]
+    assert got.shape == ref.shape == (B, Hp, Wp, 64) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, ref, **CONV_TOL[torch.bfloat16])
+    assert float((got != ref).float().mean()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(512, 512), (128, 251)])
+@pytest.mark.parametrize("layout", STEM_LAYOUTS)
+def test_stem_kernel_rows_do_not_depend_on_the_batch(H, W, layout):
+    """A row's stem output is the same bits in a batch of 8 and in one of
+    128 (the tiles, and each output's summation order, depend on H and W
+    only), and in two calls."""
+    _cuda_or_skip()
+    x, w, scale, bias = _stem_inputs(128, H, W, layout, seed=13)
+    big = cuda_stem.stem_pool(x, w, scale, bias)
+    small = cuda_stem.stem_pool(x[:8], w, scale, bias)
+    assert torch.equal(big[:8], small)
+    assert torch.equal(big, cuda_stem.stem_pool(x, w, scale, bias))
+
+
+@pytest.mark.cuda
+def test_stem_kernel_raises_instead_of_falling_back():
+    _cuda_or_skip()
+    x, w, scale, bias = _stem_inputs(2, 32, 32, "three_channels")
+    with pytest.raises(ValueError, match="planes must be contiguous"):
+        cuda_stem.stem_pool(x.contiguous(memory_format=torch.channels_last), w, scale, bias)
+    with pytest.raises(ValueError, match="device"):
+        cuda_stem.stem_pool(x, w.cpu(), scale, bias)
+    with pytest.raises(ValueError, match="w_packed"):
+        cuda_stem.stem_pool(x, w, scale, bias, w_packed=cuda_stem.pack_weight(w[:, :1]))
+
+
+@pytest.mark.cuda
+def test_fast_backbone_stem_pool_launches_the_stem_kernel():
+    """FastResNet.stem_pool: one stem-kernel launch per call at knob 512 (a
+    broadcast input and a materialized one), none at knob 0; the two routes
+    within one bf16 ulp where the knob-0 one-plane fold's rounding allows."""
+    _cuda_or_skip()
+    net = _seeded_ensemble().backbones[0].cuda()
+    plane = torch.from_numpy((np.random.default_rng(14).standard_normal((4, 1, 96, 80)) * 0.4)
+                             .astype(np.float32)).cuda().to(torch.bfloat16)
+    fast, plain = FastResNet(net, torch.bfloat16, 512), FastResNet(net, torch.bfloat16, 0)
+    before = cuda_stem.KERNEL.launches
+    one = fast.stem_pool(plane.expand(4, 3, 96, 80))
+    three = fast.stem_pool(plane.expand(4, 3, 96, 80).contiguous())
+    torch.cuda.synchronize()
+    assert cuda_stem.KERNEL.launches == before + 2
+    assert torch.equal(one, three)  # the same products in the same order
+    assert one.shape == (4, 64, 24, 20) and one.permute(0, 2, 3, 1).is_contiguous()
+    ref = plain.stem_pool(plane.expand(4, 3, 96, 80).contiguous())
+    torch.cuda.synchronize()
+    assert cuda_stem.KERNEL.launches == before + 2
+    torch.testing.assert_close(one, ref, **CONV_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda
@@ -798,18 +897,20 @@ def _daemon_state(batch_size):
 
 @pytest.mark.cuda
 def test_daemon_dispatch_launches_the_kernels_once_per_bucket_batch():
-    """A bf16 dispatch from the micro-batcher's thread: K1 once and the
-    conv kernel 19 times per bucket batch (11 windows in the 8 bucket: 2
-    batches; 3 windows: 1)."""
+    """A bf16 dispatch from the micro-batcher's thread: K1 and the stem
+    kernel once and the conv kernel 19 times per bucket batch (11 windows
+    in the 8 bucket: 2 batches; 3 windows: 1)."""
     _cuda_or_skip()
     state = _daemon_state(batch_size=8)
     try:
         for n, batches in ((11, 2), (3, 1)):
             k1, conv = cuda_melspec.KERNEL.launches, cuda_conv.KERNEL.launches
+            stem = cuda_stem.KERNEL.launches
             logits = state.batcher.logits(_waves(n, 128_000, seed=n).cpu().numpy())
             assert logits.shape == (n, 4) and np.isfinite(logits).all()
             assert cuda_melspec.KERNEL.launches - k1 == batches
             assert cuda_conv.KERNEL.launches - conv == 19 * batches
+            assert cuda_stem.KERNEL.launches - stem == batches
     finally:
         state.close()
 
@@ -817,11 +918,13 @@ def test_daemon_dispatch_launches_the_kernels_once_per_bucket_batch():
 @pytest.mark.cuda
 def test_daemon_coalesced_verdicts_equal_lone_ones():
     """Six two-window requests queued behind the device lock coalesce into
-    the 16 bucket; alone each runs in the 8 bucket. cuDNN may choose
-    another algorithm for the float32 stem at another batch size, so a
-    bf16 rounding can flip: logits within 0.3 (chip_smoke's TOL_ROUTE) and
-    the verdicts equal on every window whose lone sigmoids all lie more
-    than 0.05 from the threshold."""
+    the 16 bucket; alone each runs in the 8 bucket. The stem and conv
+    kernels give a row the same bits in either bucket, but the library
+    calls around them (the heads' batched matmuls, the resize) may choose
+    another algorithm at another batch size, so a bf16 rounding can flip:
+    logits within 0.3 (chip_smoke's TOL_ROUTE) and the verdicts equal on
+    every window whose lone sigmoids all lie more than 0.05 from the
+    threshold."""
     _cuda_or_skip()
     import threading
     import time
